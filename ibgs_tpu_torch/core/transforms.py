@@ -1,0 +1,90 @@
+"""Geometry primitives (counterpart of ibgs_tpu/core/transforms.py).
+
+Matrices follow the column-vector convention ``x_out = M @ x_in``.  Camera
+matrices are built on the host in numpy, as in the JAX package; the
+per-point helpers run on tensors.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """(…, 4) wxyz quaternion → (…, 3, 3) rotation matrix (used as-is;
+    callers normalise)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    r00 = 1.0 - 2.0 * (y * y + z * z)
+    r01 = 2.0 * (x * y - w * z)
+    r02 = 2.0 * (x * z + w * y)
+    r10 = 2.0 * (x * y + w * z)
+    r11 = 1.0 - 2.0 * (x * x + z * z)
+    r12 = 2.0 * (y * z - w * x)
+    r20 = 2.0 * (x * z - w * y)
+    r21 = 2.0 * (y * z + w * x)
+    r22 = 1.0 - 2.0 * (x * x + y * y)
+    return torch.stack([torch.stack([r00, r01, r02], dim=-1),
+                        torch.stack([r10, r11, r12], dim=-1),
+                        torch.stack([r20, r21, r22], dim=-1)], dim=-2)
+
+
+def normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-24) -> torch.Tensor:
+    """Safe unit-normalisation: v * rsqrt(|v|^2 + eps)."""
+    return v * torch.rsqrt((v * v).sum(dim=dim, keepdim=True) + eps)
+
+
+# --------------------------------------------------------------------------
+# Camera matrices (host-side numpy: built once per camera)
+# --------------------------------------------------------------------------
+
+def world_to_view(R: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """COLMAP-convention pose → 4x4 world-to-camera matrix (``R`` is the
+    camera-to-world rotation, ``t`` the world-to-camera translation)."""
+    M = np.eye(4, dtype=np.float64)
+    M[:3, :3] = R.T
+    M[:3, 3] = t
+    return M.astype(np.float32)
+
+
+def perspective(znear: float, zfar: float, fovx: float, fovy: float) -> np.ndarray:
+    """OpenGL-style frustum used by 3DGS (z in [0,1] after divide)."""
+    tx = math.tan(fovx * 0.5)
+    ty = math.tan(fovy * 0.5)
+    P = np.zeros((4, 4), dtype=np.float32)
+    P[0, 0] = 1.0 / tx
+    P[1, 1] = 1.0 / ty
+    P[2, 2] = zfar / (zfar - znear)
+    P[2, 3] = -(zfar * znear) / (zfar - znear)
+    P[3, 2] = 1.0
+    return P
+
+
+def fov_to_focal(fov: float, pixels: int) -> float:
+    return pixels / (2.0 * math.tan(fov / 2.0))
+
+
+def focal_to_fov(focal: float, pixels: int) -> float:
+    return 2.0 * math.atan(pixels / (2.0 * focal))
+
+
+# --------------------------------------------------------------------------
+# Projection helpers (device-side)
+# --------------------------------------------------------------------------
+
+def apply_transform(M: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """(4,4) @ (…,3) homogeneous point transform → (…,3) xyz (no divide)."""
+    return p @ M[:3, :3].T + M[:3, 3]
+
+
+def project_hom(M: torch.Tensor, p: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Full projective transform with homogeneous divide → (…,3) NDC."""
+    xyzw = p @ M[:, :3].T + M[:, 3]
+    w = 1.0 / (xyzw[..., 3] + eps)
+    return xyzw[..., :3] * w[..., None]
+
+
+def ndc_to_pixel(v: torch.Tensor, size) -> torch.Tensor:
+    """NDC in [-1,1] → pixel coordinate, 3DGS convention ((v+1)*S - 1)/2."""
+    return ((v + 1.0) * size - 1.0) * 0.5
