@@ -6,9 +6,12 @@ Public functions keep the JAX package's layouts (images `(H, W, C)`,
 median buffers `(H, W, B)`), and every entry point takes a `device`
 argument that defaults to `"cuda"`.
 
-This slice covers the serving path: depth re-render of the source views,
-the IBGS geometry render with the image-based warp, and the colour-fusion
-net (`eval.render_driver.EvalRenderer.render_one`).  The blend forward runs
-through a hand-written CUDA kernel (`ops/csrc/blend_fwd.cu`) on CUDA
-tensors, and through its plain PyTorch version on CPU tensors.
+It covers the serving path (`eval.render_driver.EvalRenderer.render_one`:
+depth re-render of the source views, the IBGS geometry render with the
+image-based warp, the colour-fusion net) and the training step
+(`train.trainer.make_train_step`: the full IBGS objective, backward through
+the hand-written VJPs, per-group Adam, densification statistics).  The
+blend forward and backward run through hand-written CUDA kernels
+(`ops/csrc/blend_fwd.cu`, `ops/csrc/blend_bwd.cu`) on CUDA tensors, and
+through their plain PyTorch versions on CPU tensors.
 """

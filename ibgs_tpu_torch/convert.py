@@ -9,6 +9,9 @@ package's numpy forms.
 * `camera_from_numpy` / `source_cameras`: cameras from a pose, and source
   cameras from reference-to-source transforms.
 * `bundle_scene`: the serving inputs of a converged-scene bundle.
+* `train_state_from_numpy`: a training state from the parameter fields,
+  optional Adam moments, the exposure table and the fusion net, so that
+  both packages can start a step from one state.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import torch.nn.functional as F
 
 from ibgs_tpu_torch.core.camera import Camera, camera_from_view, make_camera
 from ibgs_tpu_torch.models.aggregation import ColorFusionResidualNet
-from ibgs_tpu_torch.models.gaussians import GaussianModel, GaussianParams
+from ibgs_tpu_torch.models.gaussians import (GaussianModel, GaussianParams,
+                                             with_train_state)
 
 PARAM_FIELDS = ("xyz", "sh_dc", "sh_rest", "log_scale", "quat",
                 "opacity_logit", "normal", "offset")
@@ -114,3 +118,44 @@ def bundle_scene(d, width: int, height: int, device="cuda") -> dict:
         train_cameras=cams,
         count=int(d["src_count"]),
     )
+
+
+def cameras_extent(centers) -> float:
+    """Scene extent of the nerf++ normalisation: 1.1 x the largest distance
+    of a camera centre from their mean."""
+    c = np.asarray(centers, np.float64)
+    return float(1.1 * np.linalg.norm(c - c.mean(0), axis=-1).max())
+
+
+def train_state_from_numpy(d, net=None, mu=None, nu=None, app_ab=None,
+                           step: int = 0, spatial_lr_scale: float = 1.0,
+                           feat_aggregate_mode: str = "mean",
+                           device="cuda"):
+    """TrainState from the eight `GaussianParams` fields of `d`, optional
+    Adam moments `mu` / `nu` (dicts of the same fields, zeros when absent),
+    the (APP_CAPACITY, 2) exposure table `app_ab` (zeros when absent) and
+    the fusion net: a ColorFusionResidualNet, a Flax parameter tree, or
+    None.  Side-optimiser moments start at zero."""
+    from ibgs_tpu_torch.train.trainer import (APP_CAPACITY, SideOptState,
+                                              TrainState)
+
+    def moments(m):
+        if m is None:
+            return None
+        return GaussianParams(**{
+            k: torch.as_tensor(np.asarray(m[k], np.float32)).to(device)
+            for k in PARAM_FIELDS})
+
+    model = with_train_state(gaussians_from_numpy(d, device), moments(mu),
+                             moments(nu), step)
+    app = (torch.zeros(APP_CAPACITY, 2) if app_ab is None
+           else torch.as_tensor(np.asarray(app_ab, np.float32))).to(device)
+    if net is not None and not isinstance(net, ColorFusionResidualNet):
+        net = fusion_net_from_flax(net, feat_aggregate_mode, device)
+    if net is not None:
+        net = net.to(device)
+    return TrainState(
+        model=model, app_ab=app, app_opt=SideOptState.init([app]), net=net,
+        net_opt=(SideOptState.init(list(net.parameters()))
+                 if net is not None else None),
+        spatial_lr_scale=float(spatial_lr_scale))

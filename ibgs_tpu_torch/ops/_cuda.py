@@ -20,9 +20,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "ops" / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "ibgs_tpu_torch"
-SOURCES = {"blend_fwd": CSRC / "blend_fwd.cu"}
+SOURCES = {"blend_fwd": CSRC / "blend_fwd.cu",
+           "blend_bwd": CSRC / "blend_bwd.cu"}
 # --fmad=false: no multiply-add contraction, so float ops round one by one
-# as the plain PyTorch versions' ops do (see the note in blend_fwd.cu).
+# as the plain PyTorch versions' ops do (see the notes in the sources).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -37,6 +38,10 @@ _SIGNATURES = {
          _c_float, _c_float, _c_float, _c_float, _c_float, _c_int, _c_int,
          _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr],
         _c_int),
+    "ibgs_blend_bwd": (
+        [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int,
+         _c_float, _c_float, _c_float, _c_float, _c_float, _c_int, _c_int]
+        + [_c_ptr] * 13, _c_int),
     "ibgs_cuda_error_string": ([_c_int], ctypes.c_char_p),
 }
 
@@ -118,3 +123,21 @@ def blend_fwd(feats, tile_start, tile_stop, tiles_x, tiles_y, tile_h,
         out.color.data_ptr(), out.normal.data_ptr(), out.final_t.data_ptr(),
         out.n_contrib.data_ptr(), out.buf_depth.data_ptr(),
         out.buf_weight.data_ptr(), out.buf_contrib.data_ptr(), stream)
+
+
+def blend_bwd(feats, tile_start, tile_stop, tiles_x, tiles_y, tile_h,
+              tile_w, fx, fy, cx, cy, row0, buffer_len, mode, saved, cts,
+              out, stream) -> int:
+    """Launch ibgs_blend_bwd.  `saved` is the 7 forward outputs (colour,
+    normal, T, n_contrib, buf depth, buf weight, buf contrib) and `cts` the
+    5 cotangents (dcolor, dnormal, dT, dbuf_depth, dbuf_weight), all
+    contiguous; `out` is the zeroed (n, 16) gradient table.  Returns the
+    CUDA error code of the launch (0 = success)."""
+    color, normal, final_t, n_contrib, _bd, buf_weight, buf_contrib = saved
+    return load("blend_bwd").ibgs_blend_bwd(
+        feats.data_ptr(), feats.shape[1], tile_start.data_ptr(),
+        tile_stop.data_ptr(), tiles_x, tiles_y, tile_h, tile_w,
+        fx, fy, cx, cy, row0, buffer_len, mode,
+        color.data_ptr(), normal.data_ptr(), final_t.data_ptr(),
+        n_contrib.data_ptr(), buf_weight.data_ptr(), buf_contrib.data_ptr(),
+        *(c.data_ptr() for c in cts), out.data_ptr(), stream)

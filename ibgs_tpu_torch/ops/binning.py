@@ -1,4 +1,4 @@
-"""Tile binning and depth ordering, forward (counterpart of
+"""Tile binning, depth ordering and instance assembly (counterpart of
 ibgs_tpu/ops/binning.py).
 
 The JAX package expands Gaussians into tile instances inside static
@@ -11,7 +11,9 @@ in depth-rank order and the deepest Gaussians' slots are the ones dropped;
 
 Instance order is (tile, pre-sort slot): one stable sort by tile id, with
 slots already in depth order.  `tile_start` / `tile_stop` are the per-tile
-[start, stop) ranges that the blend reads.
+[start, stop) ranges that the blend reads.  The slots of one Gaussian are
+contiguous before the sort ([seg_off[r], seg_off[r+1]) for depth rank r),
+which `pack_rows`' backward turns into deterministic segment sums.
 """
 from __future__ import annotations
 
@@ -34,6 +36,8 @@ class TileBins:
     tile_stop: torch.Tensor   # (num_tiles,) int32
     n_instances: int          # total (pre-truncation) instance count
     slot: torch.Tensor        # (n,) int64 pre-sort slot of each sorted row
+    seg_off: torch.Tensor     # (P+1,) int64 slot range of depth rank r =
+    #                           [seg_off[r], seg_off[r+1]) (may pass n)
     n_rows: int = 0           # staircase row count (0 = AABB path)
 
 
@@ -68,7 +72,8 @@ def _expand(counts: torch.Tensor, cap: int):
     return owner, offsets, total
 
 
-def _finish(tile, rank, order, num_tiles, n_valid, total, n_rows=0):
+def _finish(tile, rank, order, num_tiles, n_valid, total, seg_off,
+            n_rows=0):
     tile_sorted, perm = torch.sort(tile, stable=True)
     rank_sorted = rank[perm]
     start, stop = tile_ranges_from_sorted(tile_sorted, num_tiles, n_valid)
@@ -76,7 +81,7 @@ def _finish(tile, rank, order, num_tiles, n_valid, total, n_rows=0):
         order=order, rank=rank_sorted, gauss_id=order[rank_sorted],
         tile_id=tile_sorted, inst_valid=tile_sorted < num_tiles,
         tile_start=start, tile_stop=stop, n_instances=total, slot=perm,
-        n_rows=n_rows)
+        seg_off=seg_off, n_rows=n_rows)
 
 
 def _staircase_row_interval(ca, cb, cc, thr, v_lo, v_hi, tile_w, mx, rx, rw):
@@ -148,8 +153,13 @@ def _bin_splats_staircase(sp: Splats2D, tiles_x: int, tiles_y: int,
     rowrank, offs2, total = _expand(w, cap)
     inst = torch.arange(rowrank.shape[0], device=rh.device)
     tile = (ty * tiles_x + lo)[rowrank] + (inst - offs2[rowrank])
+    # a gaussian's rows are contiguous and so are each row's slots: its
+    # slot range starts at offs2 of its first row (clipped like row_cap)
+    offs2_ext = torch.cat([offs2, offs2.new_tensor([total])])
+    first_row = torch.cat([offs_r, offs_r.new_tensor([total_rows])])
+    seg_off = offs2_ext[torch.clamp(first_row, 0, rrank.shape[0])]
     return _finish(tile, rrank[rowrank], order, num_tiles, inst.shape[0],
-                   total, n_rows=total_rows)
+                   total, seg_off, n_rows=total_rows)
 
 
 def bin_splats(sp: Splats2D, tiles_x: int, tiles_y: int, cap: int = 0,
@@ -208,12 +218,49 @@ def bin_splats(sp: Splats2D, tiles_x: int, tiles_y: int, cap: int = 0,
                 | (ca <= 0.0) | (cc <= 0.0))
         tile = torch.where(keep, tile, num_tiles)
 
-    return _finish(tile, rank, order, num_tiles, inst.shape[0], total)
+    seg_off = torch.cat([offsets, offsets.new_tensor([total])])
+    return _finish(tile, rank, order, num_tiles, inst.shape[0], total,
+                   seg_off)
+
+
+class _PackRows(torch.autograd.Function):
+    """Row gather forward; deterministic segment-sum backward (the JAX
+    package's `_pack_rows_bwd`): sorted-row cotangents go back to pre-sort
+    slot order through the `slot` permutation (a unique-index copy), a
+    cumsum plus a boundary difference over `seg_off` sums each Gaussian's
+    slots in depth-rank order, and `order` puts the ranks back in
+    Gaussian-id order (another unique-index copy).  No float scatter-add,
+    so the gradient does not vary from run to run.  The cumsum runs in
+    float64: in float32 the difference of two running sums keeps an error
+    of an ulp of the running sum (~6e-8 once it reaches 1), which is
+    larger than the net gradient of a Gaussian whose instances cancel."""
+
+    @staticmethod
+    def forward(ctx, feats_g, gauss_id, inst_valid, slot, seg_off, order):
+        ctx.save_for_backward(inst_valid, slot, seg_off, order)
+        out = feats_g.index_select(0, gauss_id)
+        return torch.where(inst_valid[:, None], out, 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        inst_valid, slot, seg_off, order = ctx.saved_tensors
+        n, C = g.shape
+        # (C, n) layout: the scan runs along the contiguous dimension (a
+        # scan along dim 0 of (n, C) is one sequential walk per column)
+        g_pre = g.new_empty(C, n)
+        g_pre[:, slot] = torch.where(inst_valid[:, None], g, 0.0).t()
+        f64 = torch.float64
+        cums = torch.cat([g.new_zeros(C, 1, dtype=f64),
+                          torch.cumsum(g_pre, 1, dtype=f64)], 1)
+        cb = cums[:, torch.clamp(seg_off, 0, n)]
+        g_out = torch.empty(order.shape[0], C, dtype=g.dtype, device=g.device)
+        g_out[order] = (cb[:, 1:] - cb[:, :-1]).t().to(g.dtype)
+        return g_out, None, None, None, None, None
 
 
 def pack_rows(feats_g: torch.Tensor, bins: TileBins) -> torch.Tensor:
     """Instance assembly: (P, C) per-Gaussian rows → (n, C) per-instance
-    rows in tile-sorted order (culled rows zeroed).  Forward only; the
-    segment-sum backward belongs to the training slice."""
-    out = feats_g.index_select(0, bins.gauss_id)
-    return torch.where(bins.inst_valid[:, None], out, 0.0)
+    rows in tile-sorted order (culled rows zeroed); differentiable w.r.t.
+    `feats_g` through `_PackRows`."""
+    return _PackRows.apply(feats_g, bins.gauss_id, bins.inst_valid,
+                           bins.slot, bins.seg_off, bins.order)

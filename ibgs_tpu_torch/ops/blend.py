@@ -1,6 +1,6 @@
-"""Blend forward: the plain PyTorch version and the CUDA kernel's wrapper
-(counterpart of ibgs_tpu/ops/blend_oracle.py and the forward of
-ibgs_tpu/ops/blend_pallas.py).
+"""Blend forward and backward: the plain PyTorch versions, the CUDA
+kernels' wrappers and the autograd Function around them (counterpart of
+ibgs_tpu/ops/blend_oracle.py and ibgs_tpu/ops/blend_pallas.py).
 
 Per pixel, the exact sequential semantics of the JAX oracle: front-to-back
 alpha compositing of the tile's depth-sorted instances with
@@ -12,11 +12,23 @@ T > 0.5, write-once "below" part after, last writer wins per slot).  In
 `depth_only` mode a pixel stops once the below part fills; the filling
 instance still counts.
 
-`blend_packed` launches the CUDA kernel (`csrc/blend_fwd.cu`) on CUDA
-tensors and runs `blend_plain` on CPU tensors.  There is no fallback: a
-CUDA tensor either goes through the kernel or raises.
+The backward is the analytic VJP of the Pallas `_bwd_kernel`: it re-walks
+each tile forward, takes the suffix sums of the alpha recursion as the
+saved total minus the running inclusive prefix (so it never divides by T),
+gates the alpha gradient at the 0.99 clamp and routes median-buffer
+gradients only to the exact buffer entry.  It writes one disjoint
+16-column row per instance, so the gradient needs no atomics.
+
+`blend_packed` is differentiable w.r.t. the instance table.  On CUDA
+tensors it launches the CUDA kernels (`csrc/blend_fwd.cu`,
+`csrc/blend_bwd.cu`); on CPU tensors it runs `blend_plain` /
+`blend_bwd_plain`.  There is no fallback: a CUDA tensor either goes
+through the kernels or raises.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
 
 import torch
 
@@ -31,7 +43,7 @@ N_READ = FD + 1     # channels the forward reads
 
 # Kernel launch counts, by kernel name.  Only the wrapper's launch site
 # adds to them.
-LAUNCHES = {"blend_fwd": 0}
+LAUNCHES = {"blend_fwd": 0, "blend_bwd": 0}
 
 
 def mode_of(cfg: BlendConfig) -> int:
@@ -195,16 +207,245 @@ def blend_fwd_cuda(feats: torch.Tensor, tile_start: torch.Tensor,
     return out
 
 
+def _tile_major(x: torch.Tensor, tiles_y: int, tiles_x: int, th: int,
+                tw: int) -> torch.Tensor:
+    """(Hp, Wp, ...) image → (num_tiles·th·tw, ...) pixels, tile by tile,
+    row-major inside each tile."""
+    rest = x.shape[2:]
+    return (x.reshape(tiles_y, th, tiles_x, tw, *rest).transpose(1, 2)
+            .reshape(tiles_y * tiles_x * th * tw, *rest))
+
+
+def blend_bwd_plain(feats: torch.Tensor, tile_start: torch.Tensor,
+                    tile_stop: torch.Tensor, Wp: int, Hp: int,
+                    fx: float, fy: float, cx: float, cy: float,
+                    cfg: BlendConfig, saved: BlendOutputs, cts,
+                    row0: float = 0.0,
+                    stats: Optional[dict] = None) -> torch.Tensor:
+    """The blend VJP in plain PyTorch, in per-tile-position form.
+
+    `saved` holds the uncropped forward outputs, `cts` the cotangents
+    (dcolor (Hp,Wp,3), dnormal (Hp,Wp,3), dT (Hp,Wp), dbuf_depth (Hp,Wp,B),
+    dbuf_weight (Hp,Wp,B)).  Step k re-walks instance `tile_start[tile]+k`
+    for every pixel of the tile, carrying T, the colour+normal prefix Pc
+    and the buffer prefix Qle, and reduces the step's per-pixel terms over
+    the tile's pixels with a fixed-order sum.  An instance contributes
+    where it passes the alpha gate, lies in its tile's range and sits at
+    or before the pixel's saved `n_contrib`.  The walk stops at
+    `start + max(n_contrib)` of each tile.  Returns the (n, 16) float32
+    gradient table in the column layout FX..FPAD; rows the walk never
+    reaches are zero.  A `stats` dict, when given, receives the number of
+    contributing (pixel, instance) pairs under "contrib_pairs"."""
+    dev = feats.device
+    f32 = torch.float32
+    geo = cfg.render_geo
+    th, tw = cfg.tile_h, cfg.tile_w
+    tiles_x, tiles_y = Wp // tw, Hp // th
+    num_tiles, NP = tiles_x * tiles_y, th * tw
+    n = feats.shape[0]
+    out = torch.zeros(n, CF, dtype=f32, device=dev)
+    if cfg.depth_only or n == 0 or num_tiles == 0:
+        return out
+
+    def tm(x):
+        return _tile_major(x, tiles_y, tiles_x, th, tw)
+
+    dLc, dLn, dLt, dLbd, dLbw = (tm(c) for c in cts)
+    color, normal, Tf = tm(saved.color), tm(saved.normal), tm(saved.final_t)
+    nc = tm(saved.n_contrib).long()
+    tile = torch.arange(num_tiles, device=dev).repeat_interleave(NP)
+    local = torch.arange(NP, device=dev).repeat(num_tiles)
+    px = ((tile % tiles_x) * tw + local % tw).to(f32)
+    py = ((tile // tiles_x) * th + local // tw).to(f32) + row0
+    ray_x = (px - cx) / device_scalar(fx, dev)
+    ray_y = (py - cy) / device_scalar(fy, dev)
+    start_t = tile_start.long()
+    eff_t = torch.clamp(torch.minimum(tile_stop.long() - start_t,
+                                      nc.reshape(num_tiles, NP).amax(1)),
+                        min=0)
+    start, eff = start_t[tile], eff_t[tile]
+
+    TOTcn = color[:, 0] * dLc[:, 0] + color[:, 1] * dLc[:, 1] \
+        + color[:, 2] * dLc[:, 2]
+    if geo:
+        TOTcn = TOTcn + (normal[:, 0] * dLn[:, 0] + normal[:, 1] * dLn[:, 1]
+                         + normal[:, 2] * dLn[:, 2])
+        bcN = tm(saved.buf_contrib).long()
+        gS = dLbw * tm(saved.buf_weight)
+        TOTQ = gS[:, 0]
+        for b in range(1, cfg.buffer_len):
+            TOTQ = TOTQ + gS[:, b]
+    zero = torch.zeros(num_tiles * NP, dtype=f32, device=dev)
+    T = torch.ones_like(zero)
+    Pc = torch.zeros_like(zero)
+    Qle = torch.zeros_like(zero)
+
+    for k in range(int(eff_t.max())):
+        f = feats[torch.clamp(start + k, max=n - 1)]
+        pos = k + 1
+        dx = f[:, FX] - px
+        dy = f[:, FY] - py
+        power = (-0.5 * (f[:, FCA] * dx * dx + f[:, FCC] * dy * dy)
+                 - f[:, FCB] * dx * dy)
+        g = torch.exp(torch.clamp(power, max=0.0))
+        raw = f[:, FOP] * g
+        alpha = torch.clamp(raw, max=bc.ALPHA_CLAMP)
+        contrib = ((power <= 0.0) & (alpha >= bc.ALPHA_MIN) & (k < eff)
+                   & (pos <= nc))
+        if stats is not None:
+            stats["contrib_pairs"] = (stats.get("contrib_pairs", 0)
+                                      + int(contrib.sum()))
+        a_c = torch.where(contrib, alpha, 0.0)
+        w = torch.where(contrib, alpha * T, 0.0)
+        om_a = 1.0 - a_c
+        cndl = (f[:, FR] * dLc[:, 0] + f[:, FG] * dLc[:, 1]
+                + f[:, FB] * dLc[:, 2])
+        if geo:
+            cndl = cndl + (f[:, FNX] * dLn[:, 0] + f[:, FNY] * dLn[:, 1]
+                           + f[:, FNZ] * dLn[:, 2])
+        Pc = Pc + w * cndl
+        dLa = cndl * T - (TOTcn - Pc) / om_a + dLt * (-Tf / om_a)
+        if geo:
+            # at most one buffer slot holds a given position
+            eq = bcN == pos
+            dd = torch.where(eq, dLbd, 0.0).sum(-1)
+            gw = torch.where(eq, dLbw, 0.0).sum(-1)
+            Qle = Qle + torch.where(eq, gS, 0.0).sum(-1)
+            dLa = dLa + (gw * T - (TOTQ - Qle) / om_a)
+            inv_den = 1.0 / (f[:, FNX] * ray_x + f[:, FNY] * ray_y
+                             + f[:, FNZ] + bc.PLANE_EPS)
+            d_dist = dd * (-inv_den)
+            coef = dd * f[:, FD] * inv_den * inv_den
+            geo_cols = [w * dLn[:, 0] + coef * ray_x,
+                        w * dLn[:, 1] + coef * ray_y,
+                        w * dLn[:, 2] + coef, d_dist]
+        else:
+            geo_cols = [zero] * 4
+        dLa = torch.where(contrib, dLa, 0.0)
+        live = (raw < bc.ALPHA_CLAMP).to(f32)
+        gg = g * f[:, FOP] * dLa * live
+        dmx = -(f[:, FCA] * dx + f[:, FCB] * dy) * gg
+        dmy = -(f[:, FCC] * dy + f[:, FCB] * dx) * gg
+        cols = [dmx, dmy, -0.5 * dx * dx * gg, -dx * dy * gg,
+                -0.5 * dy * dy * gg, g * dLa * live,
+                w * dLc[:, 0], w * dLc[:, 1], w * dLc[:, 2],
+                *geo_cols, dmx.abs(), dmy.abs()]
+        sums = torch.stack(cols, 1).reshape(num_tiles, NP, FAY + 1).sum(1)
+        walked = k < eff_t
+        out[start_t[walked] + k, :FAY + 1] = sums[walked]
+        T = T * om_a
+    return out
+
+
+def _check_bwd(saved: BlendOutputs, cts, Wp: int, Hp: int, B: int, dev):
+    want = {"color": 3, "normal": 3, "final_t": None, "n_contrib": None,
+            "buf_depth": B, "buf_weight": B, "buf_contrib": B}
+    for name, c in want.items():
+        t = getattr(saved, name)
+        if tuple(t.shape) != ((Hp, Wp) if c is None else (Hp, Wp, c)) \
+                or t.device != dev:
+            raise ValueError(f"blend_bwd: saved {name} is {tuple(t.shape)} "
+                             f"on {t.device}; padded image {Hp}x{Wp} on {dev}")
+    for name, c, trail in zip(("dcolor", "dnormal", "dT", "dbuf_depth",
+                               "dbuf_weight"), cts, (3, 3, None, B, B)):
+        shape = (Hp, Wp) if trail is None else (Hp, Wp, trail)
+        if c.dtype != torch.float32 or tuple(c.shape) != shape \
+                or c.device != dev:
+            raise ValueError(f"blend_bwd: {name} must be float32 {shape} on "
+                             f"{dev}, got {c.dtype} {tuple(c.shape)} on "
+                             f"{c.device}")
+
+
+def blend_bwd_cuda(feats: torch.Tensor, tile_start: torch.Tensor,
+                   tile_stop: torch.Tensor, Wp: int, Hp: int,
+                   fx: float, fy: float, cx: float, cy: float,
+                   cfg: BlendConfig, saved: BlendOutputs, cts,
+                   row0: float = 0.0) -> torch.Tensor:
+    """Launch the CUDA blend-backward kernel on the current stream; returns
+    the (n, 16) gradient table (rows the walk never reaches are zero)."""
+    from ibgs_tpu_torch.ops import _cuda
+
+    _check_inputs(feats, tile_start, tile_stop, Wp, Hp, cfg)
+    _check_bwd(saved, cts, Wp, Hp, cfg.buffer_len, feats.device)
+    if feats.device.type != "cuda":
+        raise ValueError(f"blend_bwd_cuda: tensors must be on a CUDA device, "
+                         f"got {feats.device}")
+    if cfg.depth_only:
+        raise ValueError("blend_bwd_cuda: depth_only has no backward")
+    NP = cfg.tile_h * cfg.tile_w
+    if NP > 512 or NP % 32:
+        raise ValueError("blend_bwd_cuda: a tile must hold a multiple of 32 "
+                         "pixels, at most 512")
+    c = [t.contiguous() for t in (*_tensors(saved), *cts)]
+    feats = feats.contiguous()
+    dev = feats.device
+    out = torch.zeros(feats.shape[0], CF, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _cuda.blend_bwd(
+            feats, tile_start.contiguous(), tile_stop.contiguous(),
+            Wp // cfg.tile_w, Hp // cfg.tile_h, cfg.tile_h, cfg.tile_w,
+            fx, fy, cx, cy, row0, cfg.buffer_len, mode_of(cfg),
+            c[:7], c[7:], out, stream)
+    if err != 0:
+        raise RuntimeError(f"blend_bwd kernel launch failed: "
+                           f"{_cuda.error_string(err)} ({err})")
+    LAUNCHES["blend_bwd"] += 1
+    return out
+
+
+def _tensors(out: BlendOutputs) -> tuple:
+    return tuple(getattr(out, f.name) for f in dataclasses.fields(out))
+
+
+class _BlendFunction(torch.autograd.Function):
+    """The blend as one differentiable op of the instance table, with the
+    contract of the JAX package's `_blend_core` / `_blend_bwd_rule`: the 7
+    uncropped forward outputs are saved (the crop stays outside), the
+    integer outputs are not differentiable, a missing cotangent is zero,
+    `depth_only` has a zero gradient and launches nothing, and gradient
+    rows at or past `tile_stop[-1]` are zero."""
+
+    @staticmethod
+    def forward(ctx, feats, tile_start, tile_stop, Wp, Hp, fx, fy, cx, cy,
+                cfg, row0):
+        args = (feats, tile_start, tile_stop, Wp, Hp, fx, fy, cx, cy, cfg,
+                row0)
+        if feats.device.type == "cpu":
+            _check_inputs(feats, tile_start, tile_stop, Wp, Hp, cfg)
+            out = blend_plain(*args)
+        else:
+            out = blend_fwd_cuda(*args)
+        outs = _tensors(out)
+        ctx.mark_non_differentiable(out.n_contrib, out.buf_contrib)
+        ctx.save_for_backward(feats, tile_start, tile_stop, *outs)
+        ctx.geom = (Wp, Hp, fx, fy, cx, cy, cfg)
+        ctx.row0 = row0
+        return outs
+
+    @staticmethod
+    def backward(ctx, d_color, d_normal, d_t, _d_nc, d_bd, d_bw, _d_bc):
+        feats, tile_start, tile_stop, *outs = ctx.saved_tensors
+        cfg = ctx.geom[6]
+        n, C = feats.shape
+        if cfg.depth_only or tile_stop.numel() == 0:
+            return (torch.zeros_like(feats),) + (None,) * 10
+        bwd = blend_bwd_plain if feats.device.type == "cpu" else blend_bwd_cuda
+        g = bwd(feats, tile_start, tile_stop, *ctx.geom, BlendOutputs(*outs),
+                (d_color, d_normal, d_t, d_bd, d_bw), ctx.row0)
+        valid = torch.arange(n, device=feats.device) < tile_stop[-1]
+        return (torch.where(valid[:, None], g[:, :C], 0.0),) + (None,) * 10
+
+
 def blend_packed(feats_inst: torch.Tensor, bins, Wp: int, Hp: int,
                  fx: float, fy: float, cx: float, cy: float,
                  cfg: BlendConfig, row0: float = 0.0) -> BlendOutputs:
     """Blend from a packed (n, C) per-instance table, 13 <= C <= 16, in the
-    column layout FX..FAY of the JAX package.  `bins` supplies the int32
-    `tile_start` / `tile_stop` ranges.  CUDA tensors go through the kernel;
-    CPU tensors through the plain version."""
-    args = (feats_inst, bins.tile_start, bins.tile_stop, Wp, Hp,
-            float(fx), float(fy), float(cx), float(cy), cfg, float(row0))
-    if feats_inst.device.type == "cpu":
-        _check_inputs(*args[:5], cfg)
-        return blend_plain(*args)
-    return blend_fwd_cuda(*args)
+    column layout FX..FAY of the JAX package; differentiable w.r.t. the
+    table (its gradient is the first C columns of the backward's rows).
+    `bins` supplies the int32 `tile_start` / `tile_stop` ranges.  CUDA
+    tensors go through the kernels; CPU tensors through the plain
+    versions."""
+    return BlendOutputs(*_BlendFunction.apply(
+        feats_inst, bins.tile_start, bins.tile_stop, Wp, Hp, float(fx),
+        float(fy), float(cx), float(cy), cfg, float(row0)))

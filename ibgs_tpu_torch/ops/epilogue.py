@@ -1,13 +1,17 @@
-"""Image-based-rendering epilogue, forward (counterpart of
-ibgs_tpu/ops/epilogue.py).
+"""Image-based-rendering epilogue (counterpart of ibgs_tpu/ops/epilogue.py).
 
 The per-pixel tail of the IBGS render: median plane-intersection depth
 from the buffer, reprojection of every buffer entry into each source view
 with bilinear colour sampling, occlusion testing of the median point
 against the source depth maps, valid-first packing of the warped colours
 and camera features, and the world-space viewing ray.  Float32 op order
-follows the JAX package.  The hand-written VJP of the warp belongs to the
-training slice.
+follows the JAX package.
+
+Gradients flow as in the JAX package: `warped_image` and `median_depth`
+are differentiable w.r.t. the buffer depths and weights (the warp through
+the hand-written VJP of `_WarpViews`); the source views, `camera_ray`,
+`cam_feat`, `min_depth_diff`, `valid_src_weight` and the occlusion test
+carry no gradient.
 """
 from __future__ import annotations
 
@@ -101,37 +105,101 @@ def _proj_view(bd, r2s_s, pdx, pdy, fx, fy, cx, cy, Hs, Ws):
     pu = qx * fx * inv_z + cx
     pv = qy * fy * inv_z + cy
     inb = (pu >= 0.0) & (pu <= Ws - 1.0) & (pv >= 0.0) & (pv <= Hs - 1.0)
-    return pu, pv, inb
+    return pu, pv, inb, qx, qy, inv_z
 
 
-def warp_views(bd, bw, tables, r2s, pdx, pdy, fx, fy, cx, cy):
+def _warp_corners(tables_s, pu, pv, w_eff, Hs, Ws):
+    """The four clamp-to-edge corner colours (…, 3) and the fractional
+    offsets of the bilinear sample; zero-weight entries read texel 0, as
+    the JAX package does."""
+    live = w_eff > 0.0
+    zero = torch.zeros((), dtype=torch.long, device=pu.device)
+    corners = _corners(tables_s, torch.where(live, _floor_index(pu, Ws), zero),
+                       torch.where(live, _floor_index(pv, Hs), zero))
+    return corners, pu - torch.floor(pu), pv - torch.floor(pv)
+
+
+def warp_views_plain(bd, bw, tables, r2s, pdx, pdy, fx, fy, cx, cy):
     """Reproject every buffer entry into each source view and accumulate
     weighted bilinear colours.  bd, bw: (B, H, W); tables: (S, Hs, Ws, 3)
     rgb10-quantised source colours.  Returns (S, H, W, 3) weighted colour
-    sums and (S, H, W) weight sums."""
+    sums and (S, H, W) weight sums.  Differentiable by torch autograd."""
     S, Hs, Ws = tables.shape[0], tables.shape[1], tables.shape[2]
-    B, H, W = bd.shape
     wsc, ws = [], []
     for s in range(S):
-        pu, pv, inb = _proj_view(bd, r2s[s], pdx, pdy, fx, fy, cx, cy, Hs, Ws)
+        pu, pv, inb, *_ = _proj_view(bd, r2s[s], pdx, pdy, fx, fy, cx, cy,
+                                     Hs, Ws)
         w_eff = bw * inb.to(bw.dtype)
-        x0 = _floor_index(pu, Ws)
-        y0 = _floor_index(pv, Hs)
-        # zero-weight entries read texel 0, as the JAX package does
-        live = w_eff > 0.0
-        zero = torch.zeros_like(x0)
-        c00, c01, c10, c11 = _corners(tables[s], torch.where(live, x0, zero),
-                                      torch.where(live, y0, zero))
-        fu = (pu - torch.floor(pu))[..., None]
-        fv = (pv - torch.floor(pv))[..., None]
-        w00 = (1 - fu) * (1 - fv)
-        w01 = fu * (1 - fv)
-        w10 = (1 - fu) * fv
-        w11 = fu * fv
-        col = w00 * c00 + w01 * c01 + w10 * c10 + w11 * c11   # (B,H,W,3)
+        (c00, c01, c10, c11), fu, fv = _warp_corners(tables[s], pu, pv,
+                                                     w_eff, Hs, Ws)
+        fu, fv = fu[..., None], fv[..., None]
+        col = ((1 - fu) * (1 - fv) * c00 + fu * (1 - fv) * c01
+               + (1 - fu) * fv * c10 + fu * fv * c11)       # (B,H,W,3)
         wsc.append((col * w_eff[..., None]).sum(0))
         ws.append(w_eff.sum(0))
     return torch.stack(wsc, 0), torch.stack(ws, 0)
+
+
+class _WarpViews(torch.autograd.Function):
+    """`warp_views_plain` with the JAX package's hand-derived VJP
+    (`_warp_views_bwd`): the bilinear texture gradient chained through the
+    projection Jacobian dp/d(depth), plus the in-bounds-masked weight
+    gradient.  The backward recomputes the projection and the corner
+    gather from the inputs instead of saving the (B, H, W, 3) corner slabs
+    of every source.  The source tables, transforms and rays get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, bd, bw, tables, r2s, pdx, pdy, intr):
+        ctx.save_for_backward(bd, bw, tables, r2s, pdx, pdy)
+        ctx.intr = intr
+        return warp_views_plain(bd, bw, tables, r2s, pdx, pdy, *intr)
+
+    @staticmethod
+    def backward(ctx, g_wsc, g_wsum):
+        bd, bw, tables, r2s, pdx, pdy = ctx.saved_tensors
+        fx, fy, cx, cy = ctx.intr
+        S, Hs, Ws = tables.shape[0], tables.shape[1], tables.shape[2]
+        dbd = torch.zeros_like(bd)
+        dbw = torch.zeros_like(bw)
+        for s in range(S):
+            pu, pv, inb, qx, qy, inv_z = _proj_view(
+                bd, r2s[s], pdx, pdy, fx, fy, cx, cy, Hs, Ws)
+            inbf = inb.to(bw.dtype)
+            w_eff = bw * inbf
+            (c00, c01, c10, c11), fu, fv = _warp_corners(tables[s], pu, pv,
+                                                         w_eff, Hs, Ws)
+            w00 = (1 - fu) * (1 - fv)
+            w01 = fu * (1 - fv)
+            w10 = (1 - fu) * fv
+            w11 = fu * fv
+            dw_eff = g_wsum[s][None]
+            du = torch.zeros_like(bd)
+            dv = torch.zeros_like(bd)
+            for ch in range(3):
+                a00, a01 = c00[..., ch], c01[..., ch]
+                a10, a11 = c10[..., ch], c11[..., ch]
+                col = w00 * a00 + w01 * a01 + w10 * a10 + w11 * a11
+                gc = g_wsc[s][None, ..., ch]
+                dw_eff = dw_eff + col * gc
+                dcol = w_eff * gc
+                du = du + dcol * ((1 - fv) * (a01 - a00) + fv * (a11 - a10))
+                dv = dv + dcol * ((1 - fu) * (a10 - a00) + fu * (a11 - a01))
+            dbw = dbw + dw_eff * inbf
+            # q = A·(pdx·d, pdy·d, d) + t, so dq/dd = A·(pdx, pdy, 1)
+            rx, ry, rz = (r2s[s, i, 0] * pdx + r2s[s, i, 1] * pdy
+                          + r2s[s, i, 2] for i in range(3))
+            du_dbd = fx * (rx[None] - qx * inv_z * rz[None]) * inv_z
+            dv_dbd = fy * (ry[None] - qy * inv_z * rz[None]) * inv_z
+            dbd = dbd + du * du_dbd + dv * dv_dbd
+        return dbd, dbw, None, None, None, None, None
+
+
+def warp_views(bd, bw, tables, r2s, pdx, pdy, fx, fy, cx, cy):
+    """`warp_views_plain` (same arguments and outputs), differentiable
+    w.r.t. `bd` and `bw` through the hand-written VJP."""
+    return _WarpViews.apply(bd, bw, tables, r2s, pdx, pdy,
+                            (fx, fy, cx, cy))
 
 
 def median_depth_only(blend: BlendOutputs) -> torch.Tensor:
@@ -145,8 +213,11 @@ def ibr_epilogue(blend: BlendOutputs, cam: Camera, src: SourceViews,
     H, W = blend.final_t.shape
     S, Hs, Ws = src.images.shape[0], src.images.shape[1], src.images.shape[2]
     dev = blend.final_t.device
-    r2s = src.ref_to_src
-    src_pos = src.cam_pos
+    # the source views are constants
+    images = src.images.detach()
+    depths = src.depths.detach()
+    r2s = src.ref_to_src.detach()
+    src_pos = src.cam_pos.detach()
 
     xs = torch.arange(W, dtype=torch.float32, device=dev)
     ys = torch.arange(H, dtype=torch.float32, device=dev)
@@ -158,7 +229,7 @@ def ibr_epilogue(blend: BlendOutputs, cam: Camera, src: SourceViews,
     bd = blend.buf_depth.permute(2, 0, 1)
     used = bw != 0.0
 
-    tables = quantize_rgb10(src.images)
+    tables = quantize_rgb10(images)
     wsum_color, wsum = warp_views(bd, bw, tables, r2s, pdx, pdy,
                                   cam.fx, cam.fy, cam.cx, cam.cy)
 
@@ -182,10 +253,13 @@ def ibr_epilogue(blend: BlendOutputs, cam: Camera, src: SourceViews,
         [d[..., 0] * V[0, k] + d[..., 1] * V[1, k] + d[..., 2] * V[2, k]
          for k in range(3)], dim=-1)
     ray = mpt_world - cam.cam_pos
-    ray = ray * torch.rsqrt((ray * ray).sum(-1, keepdim=True) + EPS)
+    ray = (ray * torch.rsqrt((ray * ray).sum(-1, keepdim=True) + EPS)
+           ).detach()
+    mpt_world_c = mpt_world.detach()
 
-    # occlusion test of the median point per source
-    mx, my, mz = mpt[..., 0][None], mpt[..., 1][None], mpt[..., 2][None]
+    # occlusion test of the median point per source (no gradient)
+    mpt_c = mpt.detach()
+    mx, my, mz = mpt_c[..., 0][None], mpt_c[..., 1][None], mpt_c[..., 2][None]
 
     def xform_m(M, i):
         return (M[:, i, 0][:, None, None] * mx + M[:, i, 1][:, None, None] * my
@@ -196,7 +270,7 @@ def ibr_epilogue(blend: BlendOutputs, cam: Camera, src: SourceViews,
     pum = qmx * cam.fx * inv_zm + cam.cx
     pvm = qmy * cam.fy * inv_zm + cam.cy
     inbm = (pum >= 0.0) & (pum <= W - 1.0) & (pvm >= 0.0) & (pvm <= Hs - 1.0)
-    wdepth = torch.stack([bilinear_sample(src.depths[s], pum[s], pvm[s])
+    wdepth = torch.stack([bilinear_sample(depths[s], pum[s], pvm[s])
                           for s in range(S)], dim=0)
     wdepth = torch.where(inbm, wdepth, 0.0)
     depth_err = torch.abs(wdepth - qmz) * inv_zm             # (S,H,W)
@@ -222,20 +296,20 @@ def ibr_epilogue(blend: BlendOutputs, cam: Camera, src: SourceViews,
     warped = wsum_color / (wsum[..., None] + EPS)
     warped_p = pack(warped)
 
-    src_dir = mpt_world[None] - src_pos[:, None, None, :]
+    src_dir = mpt_world_c[None] - src_pos[:, None, None, :]
     src_dir = src_dir * torch.rsqrt((src_dir * src_dir).sum(-1, keepdim=True)
                                     + EPS)
     ray_dot = (src_dir * ray[None]).sum(-1)
     dcam = ((cam.cam_pos - src_pos)[:, None, None, :]
             * torch.ones(S, H, W, 3, device=dev))
     feat = torch.cat([dcam, ray_dot[..., None]], dim=-1)
-    feat_p = pack(feat)
+    feat_p = pack(feat).detach()
 
     idx_p = torch.where(valid_p, pack(s_ids.expand(S, H, W)), -1)
-    wsum_p = pack(wsum)
+    wsum_p = pack(wsum).detach()
 
     min_err = torch.where(valid, depth_err, 1.0).amin(dim=0)
-    min_err = torch.clamp(min_err, max=1.0)
+    min_err = torch.clamp(min_err, max=1.0).detach()
 
     return IBROutputs(
         median_depth=median, camera_ray=ray, warped_image=warped_p,

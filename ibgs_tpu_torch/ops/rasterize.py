@@ -1,11 +1,17 @@
-"""Plane-based Gaussian rasterization, forward (counterpart of
+"""Plane-based Gaussian rasterization (counterpart of
 ibgs_tpu/ops/rasterize.py).
 
-    preprocess → binning → pack_rows → blend (CUDA kernel on the card)
+    preprocess → binning → pack_rows → blend (CUDA kernels on the card)
       → epilogue
 
-The viewport-band arguments of the JAX package's `rasterize` (row-band
-sharding) belong to the parallel slice; the blend still takes `row0`.
+The whole call is differentiable w.r.t. the Gaussian parameters: the
+blend, `pack_rows` and the warp carry hand-written VJPs, everything else
+is torch autograd.  As in the JAX package, zero-valued `screen_dummy` /
+`screen_dummy_abs` inputs (P, 2) expose the per-Gaussian screen-space
+gradient and its per-pixel absolute-value sum (the densification
+statistics).  The viewport-band arguments of the JAX package's
+`rasterize` (row-band sharding) belong to the parallel slice; the blend
+still takes `row0`.
 """
 from __future__ import annotations
 
@@ -72,7 +78,7 @@ class Prepared:
     """Everything the blend of one view reads."""
     sp: preprocess.Splats2D
     bins: binning.TileBins
-    feats_inst: torch.Tensor   # (n, 13) per-instance table, columns FX..FD
+    feats_inst: torch.Tensor   # (n, 15) per-instance table, columns FX..FAY
     Wp: int                    # padded, tile-aligned image size
     Hp: int
 
@@ -80,13 +86,21 @@ class Prepared:
 def prepare(*, xyz, scale, quat, opacity, sh_coeffs, active_sh_degree,
             normal_world, plane_offset, cam: Camera, cfg: RasterConfig,
             alive: Optional[torch.Tensor] = None,
-            rgb_override: Optional[torch.Tensor] = None) -> Prepared:
-    """Preprocess, bin and pack one view's instances."""
+            rgb_override: Optional[torch.Tensor] = None,
+            screen_dummy: Optional[torch.Tensor] = None,
+            screen_dummy_abs: Optional[torch.Tensor] = None) -> Prepared:
+    """Preprocess, bin and pack one view's instances.  `screen_dummy` is
+    added to the screen means; `screen_dummy_abs` becomes columns FAX/FAY
+    (zeros when absent)."""
     P = xyz.shape[0]
     for name, arr, trail in (("xyz", xyz, (3,)), ("scale", scale, (3,)),
                              ("quat", quat, (4,)), ("opacity", opacity, ()),
                              ("normal_world", normal_world, (3,)),
-                             ("plane_offset", plane_offset, ())):
+                             ("plane_offset", plane_offset, ()),
+                             ("screen_dummy", screen_dummy, (2,)),
+                             ("screen_dummy_abs", screen_dummy_abs, (2,))):
+        if arr is None:
+            continue
         if tuple(arr.shape) != (P,) + trail:
             raise ValueError(f"rasterize: {name} must have shape "
                              f"{(P,) + trail}, got {tuple(arr.shape)}")
@@ -106,20 +120,28 @@ def prepare(*, xyz, scale, quat, opacity, sh_coeffs, active_sh_degree,
     cull_tab = None
     if cfg.staircase_cull:
         # mean + conic + the ln(255*opacity) power threshold of the blend's
-        # alpha >= 1/255 gate
-        thr = torch.log(torch.clamp(255.0 * sp.opacity, min=1.000001))
+        # alpha >= 1/255 gate; binning's outputs are integers, so no
+        # gradient flows here
+        m2c, con = sp.mean2d.detach(), sp.conic.detach()
+        thr = torch.log(torch.clamp(255.0 * sp.opacity.detach(),
+                                    min=1.000001))
         cull_tab = torch.stack(
-            [sp.mean2d[:, 0], sp.mean2d[:, 1], sp.conic[:, 0],
-             sp.conic[:, 1], sp.conic[:, 2], thr], dim=1)
+            [m2c[:, 0], m2c[:, 1], con[:, 0], con[:, 1], con[:, 2], thr],
+            dim=1)
     bins = binning.bin_splats(sp, tiles_x, tiles_y, cfg.instance_cap,
                               cull_tab=cull_tab, tile_h=cfg.tile_h,
                               tile_w=cfg.tile_w,
                               staircase=cfg.staircase_cull,
                               row_cap=cfg.row_cap or cfg.instance_cap // 2)
 
-    # one packed per-Gaussian table (columns FX..FD) → one row gather
-    feats_g = torch.cat([sp.mean2d, sp.conic, sp.opacity[:, None], sp.rgb,
-                         sp.plane_normal, sp.plane_dist[:, None]], dim=1)
+    mean2d = sp.mean2d if screen_dummy is None else sp.mean2d + screen_dummy
+    if screen_dummy_abs is None:
+        screen_dummy_abs = torch.zeros(P, 2, dtype=torch.float32,
+                                       device=xyz.device)
+    # one packed per-Gaussian table (columns FX..FAY) → one row gather
+    feats_g = torch.cat([mean2d, sp.conic, sp.opacity[:, None], sp.rgb,
+                         sp.plane_normal, sp.plane_dist[:, None],
+                         screen_dummy_abs], dim=1)
     return Prepared(sp=sp, bins=bins,
                     feats_inst=binning.pack_rows(feats_g, bins), Wp=Wp, Hp=Hp)
 
@@ -129,13 +151,17 @@ def rasterize(*, xyz, scale, quat, opacity, sh_coeffs, active_sh_degree,
               cfg: RasterConfig, src: Optional[SourceViews] = None,
               alive: Optional[torch.Tensor] = None, render_geo: bool = True,
               depth_only: bool = False,
-              rgb_override: Optional[torch.Tensor] = None) -> RenderResult:
-    """Forward render of one view (no autograd: the blend backward belongs
-    to the training slice)."""
+              rgb_override: Optional[torch.Tensor] = None,
+              screen_dummy: Optional[torch.Tensor] = None,
+              screen_dummy_abs: Optional[torch.Tensor] = None
+              ) -> RenderResult:
+    """Differentiable render of one view."""
     pr = prepare(xyz=xyz, scale=scale, quat=quat, opacity=opacity,
                  sh_coeffs=sh_coeffs, active_sh_degree=active_sh_degree,
                  normal_world=normal_world, plane_offset=plane_offset,
-                 cam=cam, cfg=cfg, alive=alive, rgb_override=rgb_override)
+                 cam=cam, cfg=cfg, alive=alive, rgb_override=rgb_override,
+                 screen_dummy=screen_dummy,
+                 screen_dummy_abs=screen_dummy_abs)
     bcfg = cfg.blend_cfg(render_geo, depth_only)
     out = blend.blend_packed(pr.feats_inst, pr.bins, pr.Wp, pr.Hp, cam.fx,
                              cam.fy, cam.cx, cam.cy, bcfg

@@ -43,15 +43,19 @@ def source_views_from_stacks(image_stack: torch.Tensor,
 def render_view(model: GaussianModel, cam: Camera, cfg: RasterConfig,
                 bg: torch.Tensor, src: Optional[SourceViews] = None,
                 learnt_normal: bool = True, render_geo: bool = True,
-                depth_only: bool = False, return_depth_normal: bool = True):
-    """One forward render.  Returns (RenderResult, depth_normal | None)."""
+                depth_only: bool = False, return_depth_normal: bool = True,
+                screen_dummy: Optional[torch.Tensor] = None,
+                screen_dummy_abs: Optional[torch.Tensor] = None):
+    """One differentiable render.  Returns (RenderResult, depth_normal |
+    None)."""
     normal_w, offset = model.oriented_normal(cam.cam_pos, learnt=learnt_normal)
     res = rasterize(
         xyz=model.params.xyz, scale=model.scale, quat=model.quat_unit,
         opacity=model.opacity, sh_coeffs=model.sh_coeffs,
         active_sh_degree=model.active_sh_degree, normal_world=normal_w,
         plane_offset=offset, cam=cam, bg=bg, cfg=cfg, src=src,
-        alive=model.alive, render_geo=render_geo, depth_only=depth_only)
+        alive=model.alive, render_geo=render_geo, depth_only=depth_only,
+        screen_dummy=screen_dummy, screen_dummy_abs=screen_dummy_abs)
     dnormal = None
     if return_depth_normal and (render_geo or depth_only):
         dn = depth_to_normal(cam, res.median_depth)

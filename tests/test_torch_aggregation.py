@@ -17,6 +17,7 @@ import torch
 from ibgs_tpu.models import aggregation as jagg
 from ibgs_tpu_torch import convert
 from ibgs_tpu_torch.models import aggregation as tagg
+from tests.test_torch_slice import one_torch_thread  # noqa: F401
 
 S = 3
 ATOL = 1e-4

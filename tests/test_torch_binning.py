@@ -6,7 +6,12 @@ min(total, cap) instances: depth order, rank, gaussian id, tile id,
 pre-sort slot, validity, tile_start / tile_stop, n_instances and n_rows —
 on the AABB path (with and without the exact tile cull) and the staircase
 path, with and without small `cap` / `row_cap` (prefix truncation).
-pack_rows forward must agree exactly too.
+pack_rows forward must agree exactly too, and so must `seg_off` (each
+Gaussian's pre-sort slot range) on both paths with and without cap /
+row_cap truncation.  pack_rows' segment-sum VJP is held to JAX's at
+atol 1e-5 x max |column| (JAX sums with a float32 cumsum over the whole
+instance list, the port with a float64 one), and is bit-identical from run
+to run.
 """
 import dataclasses
 import functools
@@ -21,6 +26,7 @@ from ibgs_tpu.ops import binning as jbin
 from ibgs_tpu.ops import preprocess as jpre
 from ibgs_tpu_torch.ops import binning as tbin
 from ibgs_tpu_torch.ops.preprocess import Splats2D
+from tests.test_torch_slice import one_torch_thread  # noqa: F401
 from tests.utils import simple_camera
 
 W, H, TH, TW = 96, 64, 8, 16
@@ -113,3 +119,40 @@ def test_tile_ranges_from_sorted():
     s, e = tbin.tile_ranges_from_sorted(torch.as_tensor(ts).long(), 5, 7)
     np.testing.assert_array_equal(s.numpy(), np.asarray(js))
     np.testing.assert_array_equal(e.numpy(), np.asarray(je))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_seg_off_exact(name):
+    _sp, jb, _tsp, tb, _cap = _bins(name)
+    assert tb.seg_off.shape == (tb.order.shape[0] + 1,)
+    np.testing.assert_array_equal(tb.seg_off.numpy(), np.asarray(jb.seg_off))
+
+
+def _pack_vjp(name, seed):
+    sp, jb, tsp, tb, _cap = _bins(name)
+    r = np.random.default_rng(seed)
+    P, n = sp.depth.shape[0], tb.rank.shape[0]
+    feats = r.normal(size=(P, 15)).astype(np.float32)
+    ct = (r.normal(size=(jb.rank.shape[0], 15)) * 10).astype(np.float32)
+    _, vjp = jax.vjp(lambda f: jbin.pack_rows(f, jb), jnp.asarray(feats))
+    want = np.asarray(vjp(jnp.asarray(ct))[0])
+    f = torch.as_tensor(feats).requires_grad_(True)
+    (got,) = torch.autograd.grad(
+        (tbin.pack_rows(f, tb) * torch.as_tensor(ct[:n])).sum(), f)
+    return got.numpy(), want
+
+
+@pytest.mark.parametrize("name", ["aabb_cull", "aabb_cap", "staircase",
+                                  "staircase_cap", "staircase_rowcap"])
+def test_pack_rows_vjp_matches_jax(name):
+    got, want = _pack_vjp(name, 2)
+    scale = np.abs(want).max(0)
+    assert (scale > 0).all()
+    assert (np.abs(got - want) <= 1e-5 * scale).all(), \
+        (np.abs(got - want) / scale).max(0)
+
+
+def test_pack_rows_vjp_bit_identical_runs():
+    a, _ = _pack_vjp("staircase_cap", 3)
+    b, _ = _pack_vjp("staircase_cap", 3)
+    np.testing.assert_array_equal(a, b)

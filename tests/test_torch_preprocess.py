@@ -25,6 +25,7 @@ from ibgs_tpu_torch.core import transforms as ttf
 from ibgs_tpu_torch.models.gaussians import GaussianModel, GaussianParams
 from ibgs_tpu_torch.ops import preprocess as tpre
 from ibgs_tpu_torch.ops.rasterize import mark_visible
+from tests.test_torch_slice import one_torch_thread  # noqa: F401
 
 RTOL = ATOL = 1e-5
 
