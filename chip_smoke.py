@@ -9,6 +9,8 @@ Phases, one JSON line each; any failure makes the exit code 1:
 
   device     the card's name, count and nvidia-smi name / power limit
   build      nvcc of every kernel source (registers, shared memory, spills)
+             and, per kernel and mode, the CTAs one SM holds at the main
+             path's CTA size (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
   blend_fwd  the forward kernel against its plain PyTorch version in all
              three modes on the bundle's real instances at 960x544
   blend_bwd  the backward kernel against its plain version at 960x544 in
@@ -21,7 +23,9 @@ Phases, one JSON line each; any failure makes the exit code 1:
              iteration 13000), 1 launch of each kernel per step, finite,
              loss falling; then 1 colour-only step (iteration 5000)
   timing     kernel / plain / serving / train-step times (CUDA events and
-             host clock), peak memory, device busy share (torch.profiler)
+             host clock), each kernel case's share of its bound, the tile
+             range lengths (p50, p99, max) per size, peak memory, device
+             busy share (torch.profiler)
   kernels    each kernel with its launches on the serving and train paths
 
 then the nvidia-smi line and, last, {"ok": true, "device": {...}}.
@@ -207,18 +211,29 @@ def main():
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     # ---- build -----------------------------------------------------------
-    t0 = time.time()
-    logs = _cuda.build()
-    emit({"phase": "build", "seconds": round(time.time() - t0, 3),
-          "kernels": {name: parse_ptxas(log) for name, log in logs.items()}})
-
-    # ---- inputs ----------------------------------------------------------
-    d = dict(np.load(BUNDLE))
     opt, pipe = OptimizationParams(), PipelineParams()
     rcfg = RasterConfig(buffer_len=opt.buffer_length,
                         depth_error_threshold=opt.depth_error_threshold,
                         staircase_cull=pipe.staircase_cull,
                         row_cap=pipe.row_cap)
+    t0 = time.time()
+    logs = _cuda.build()
+    cta = {}
+    for name, modes, limit in (("blend_fwd", (0, 1, 2), blend.FWD_CTA),
+                               ("blend_bwd", (1, 0), blend.BWD_CTA)):
+        sy, sx = blend.sub_tile_split(rcfg.tile_h, rcfg.tile_w, limit)
+        sub = (-(-rcfg.tile_h // sy), -(-rcfg.tile_w // sx))
+        cta[name] = {"sub_tile": list(sub), "modes": {
+            MODE_NAMES[m]: dict(zip(("ctas_per_sm", "threads"),
+                                    _cuda.occupancy(name, m, rcfg.buffer_len,
+                                                    *sub)))
+            for m in modes}}
+    emit({"phase": "build", "seconds": round(time.time() - t0, 3),
+          "kernels": {name: parse_ptxas(log) for name, log in logs.items()},
+          "tile": [rcfg.tile_h, rcfg.tile_w], "cta": cta})
+
+    # ---- inputs ----------------------------------------------------------
+    d = dict(np.load(BUNDLE))
     scenes = {wh: convert.bundle_scene(d, wh[0], wh[1], dev) for wh in SIZES}
 
     def prepared(sc):
@@ -238,14 +253,20 @@ def main():
 
     preps = {wh: prepared(scenes[wh]) for wh in SIZES}
 
+    def range_lengths(pr):
+        """p50, p99 and max of the tile range lengths."""
+        lens = (pr.bins.tile_stop - pr.bins.tile_start).double()
+        q = torch.quantile(lens, torch.tensor([0.5, 0.99], device=lens.device,
+                                              dtype=lens.dtype))
+        return {"p50": float(q[0]), "p99": float(q[1]),
+                "max": int(lens.max()), "tiles": int(lens.numel())}
+
     # ---- blend_fwd: kernel vs plain at 960x544 -----------------------------
     wh = SIZES[0]
     pr, cam = preps[wh], scenes[wh]["cam"]
-    lengths = (pr.bins.tile_stop - pr.bins.tile_start).long()
     rec = {"phase": "blend_fwd", "size": f"{wh[0]}x{wh[1]}",
            "n_instances": pr.bins.n_instances, "n_rows": pr.bins.n_rows,
-           "num_tiles": int(lengths.numel()),
-           "longest_tile_range": int(lengths.max()), "modes": {}}
+           "tile_ranges": range_lengths(pr), "modes": {}}
     fwd_max_abs_err = 0.0
     pairs = {}
     for mode in (0, 1, 2):
@@ -489,6 +510,7 @@ def main():
                 "size": f"{wh[0]}x{wh[1]}", "mode": MODE_NAMES[mode],
                 "ms": k_ms, "plain_ms": p_ms,
                 "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_share": max(t_bytes, t_ops) * 1e3 / k_ms,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes, "pairs": pairs[(wh, mode)]})
 
@@ -520,6 +542,7 @@ def main():
                 "size": f"{wh[0]}x{wh[1]}", "mode": MODE_NAMES[mode],
                 "ms": k_ms, "plain_ms": p_ms,
                 "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_share": max(t_bytes, t_ops) * 1e3 / k_ms,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes, "walked_pairs": walked,
                 "contrib_pairs": contrib_pairs[(wh, mode)], "ops": ops})
@@ -575,6 +598,8 @@ def main():
             "ms_per_step": times, "max_memory_allocated": peak,
             "profile": device_profile(train_one, times["median"])}
     emit({"phase": "timing", "blend_fwd": fwd_cases, "blend_bwd": bwd_cases,
+          "tile_ranges": {f"{wh[0]}x{wh[1]}": range_lengths(preps[wh])
+                          for wh in SIZES},
           "serve": serve_ms, "train_step": train_ms})
 
     # ---- kernels -----------------------------------------------------------
@@ -608,7 +633,7 @@ def main():
                 "max_abs_err": max_err, "ms": main["ms"],
                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"], "library_ms": None,
-                "cases": cases}
+                "cta": cta[name], "cases": cases}
 
     emit({"kernels": [
         line("blend_fwd", "ibgs_tpu_torch/ops/csrc/blend_fwd.cu",

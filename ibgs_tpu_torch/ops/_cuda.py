@@ -3,9 +3,10 @@
 Each `csrc/*.cu` source has a plain C interface.  At first use it is
 compiled by `nvcc` for sm_90a into a shared library under
 `build/ibgs_tpu_torch/` at the repository root and loaded with ctypes.  The
-library name carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused.  All sources are compiled
-in parallel, one `nvcc` process each.  Nothing here runs at import.
+library name carries a hash of the source, the shared headers of `csrc/`
+and the flags, so an edited source is rebuilt and an unchanged one is
+reused.  All sources are compiled in parallel, one `nvcc` process each.
+Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ CSRC = _PKG / "ops" / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "ibgs_tpu_torch"
 SOURCES = {"blend_fwd": CSRC / "blend_fwd.cu",
            "blend_bwd": CSRC / "blend_bwd.cu"}
+HEADERS = (CSRC / "blend_common.cuh",)
 # --fmad=false: no multiply-add contraction, so float ops round one by one
 # as the plain PyTorch versions' ops do (see the notes in the sources).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -32,16 +34,21 @@ _lock = threading.Lock()
 _libs: dict = {}
 
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# feats, stride, tile_start, tile_stop, tiles_x, tiles_y, tile_h, tile_w,
+# splits_y, splits_x, fx, fy, cx, cy, row0, buffer_len, mode
+_HEAD = ([_c_ptr, _c_int, _c_ptr, _c_ptr] + [_c_int] * 6 + [_c_float] * 5
+         + [_c_int, _c_int])
 _SIGNATURES = {
-    "ibgs_blend_fwd": (
-        [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int,
-         _c_float, _c_float, _c_float, _c_float, _c_float, _c_int, _c_int,
-         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr],
-        _c_int),
-    "ibgs_blend_bwd": (
-        [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int,
-         _c_float, _c_float, _c_float, _c_float, _c_float, _c_int, _c_int]
-        + [_c_ptr] * 13, _c_int),
+    # + 7 outputs, the order scratch, the stream
+    "ibgs_blend_fwd": (_HEAD + [_c_ptr] * 9, _c_int),
+    # + 6 saved outputs, 5 cotangents, out, scratch, n_rows, workspace,
+    # the stream
+    "ibgs_blend_bwd": (_HEAD + [_c_ptr] * 13 + [_c_int, _c_ptr, _c_ptr],
+                       _c_int),
+    "ibgs_blend_fwd_occupancy": ([_c_int] * 4 + [ctypes.POINTER(_c_int)] * 2,
+                                 _c_int),
+    "ibgs_blend_bwd_occupancy": ([_c_int] * 4 + [ctypes.POINTER(_c_int)] * 2,
+                                 _c_int),
     "ibgs_cuda_error_string": ([_c_int], ctypes.c_char_p),
 }
 
@@ -58,7 +65,8 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(SOURCES[name].read_bytes()
+    h = hashlib.sha256(b"".join(f.read_bytes()
+                                for f in (SOURCES[name], *HEADERS))
                        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{h}.so"
 
@@ -112,32 +120,55 @@ def error_string(err: int) -> str:
 
 
 def blend_fwd(feats, tile_start, tile_stop, tiles_x, tiles_y, tile_h,
-              tile_w, fx, fy, cx, cy, row0, buffer_len, mode, out,
-              stream) -> int:
-    """Launch ibgs_blend_fwd; `out` is a BlendOutputs of allocated tensors.
-    Returns the CUDA error code of the launch (0 = success)."""
+              tile_w, splits, fx, fy, cx, cy, row0, buffer_len, mode, out,
+              order, stream) -> int:
+    """Launch ibgs_blend_fwd (the tile-order pre-pass and the blend);
+    `out` is a BlendOutputs of allocated tensors, `splits` the tile's
+    (splits_y, splits_x) sub-tiles and `order` int32 scratch of one entry
+    per tile.  Returns the CUDA error code of the launches (0 = success)."""
     return load("blend_fwd").ibgs_blend_fwd(
         feats.data_ptr(), feats.shape[1], tile_start.data_ptr(),
-        tile_stop.data_ptr(), tiles_x, tiles_y, tile_h, tile_w,
+        tile_stop.data_ptr(), tiles_x, tiles_y, tile_h, tile_w, *splits,
         fx, fy, cx, cy, row0, buffer_len, mode,
         out.color.data_ptr(), out.normal.data_ptr(), out.final_t.data_ptr(),
         out.n_contrib.data_ptr(), out.buf_depth.data_ptr(),
-        out.buf_weight.data_ptr(), out.buf_contrib.data_ptr(), stream)
+        out.buf_weight.data_ptr(), out.buf_contrib.data_ptr(),
+        order.data_ptr(), stream)
 
 
 def blend_bwd(feats, tile_start, tile_stop, tiles_x, tiles_y, tile_h,
-              tile_w, fx, fy, cx, cy, row0, buffer_len, mode, saved, cts,
-              out, stream) -> int:
-    """Launch ibgs_blend_bwd.  `saved` is the 7 forward outputs (colour,
-    normal, T, n_contrib, buf depth, buf weight, buf contrib) and `cts` the
-    5 cotangents (dcolor, dnormal, dT, dbuf_depth, dbuf_weight), all
-    contiguous; `out` is the zeroed (n, 16) gradient table.  Returns the
-    CUDA error code of the launch (0 = success)."""
+              tile_w, splits, fx, fy, cx, cy, row0, buffer_len, mode, saved,
+              cts, out, scratch, workspace, stream) -> int:
+    """Launch ibgs_blend_bwd (the tile-order pre-pass and the backward).
+    `saved` is the 7 forward outputs (colour, normal, T, n_contrib, buf
+    depth, buf weight, buf contrib) and `cts` the 5 cotangents (dcolor,
+    dnormal, dT, dbuf_depth, dbuf_weight), all contiguous; `out` is the
+    zeroed (n, 16) gradient table, `scratch` a (splits, n, 16) float32
+    table or None for a tile of one sub-tile, `workspace` int32 scratch of
+    num_tiles * (2 + splits) entries.  Returns the CUDA error code of the
+    launches (0 = success)."""
     color, normal, final_t, n_contrib, _bd, buf_weight, buf_contrib = saved
     return load("blend_bwd").ibgs_blend_bwd(
         feats.data_ptr(), feats.shape[1], tile_start.data_ptr(),
-        tile_stop.data_ptr(), tiles_x, tiles_y, tile_h, tile_w,
+        tile_stop.data_ptr(), tiles_x, tiles_y, tile_h, tile_w, *splits,
         fx, fy, cx, cy, row0, buffer_len, mode,
         color.data_ptr(), normal.data_ptr(), final_t.data_ptr(),
         n_contrib.data_ptr(), buf_weight.data_ptr(), buf_contrib.data_ptr(),
-        *(c.data_ptr() for c in cts), out.data_ptr(), stream)
+        *(c.data_ptr() for c in cts), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), feats.shape[0],
+        workspace.data_ptr(), stream)
+
+
+def occupancy(name: str, mode: int, buffer_len: int, sub_h: int,
+              sub_w: int) -> tuple:
+    """(CTAs one SM holds at once, threads per CTA) of kernel `name`
+    ("blend_fwd" or "blend_bwd") in `mode` at `buffer_len` for a sub_h x
+    sub_w sub-tile (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    blocks, threads = _c_int(0), _c_int(0)
+    err = getattr(load(name), f"ibgs_{name}_occupancy")(
+        mode, buffer_len, sub_h, sub_w, ctypes.byref(blocks),
+        ctypes.byref(threads))
+    if err != 0:
+        raise RuntimeError(f"{name} occupancy query failed: "
+                           f"{error_string(err)} ({err})")
+    return blocks.value, threads.value

@@ -28,6 +28,7 @@ through the kernels or raises.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -44,6 +45,45 @@ N_READ = FD + 1     # channels the forward reads
 # Kernel launch counts, by kernel name.  Only the wrapper's launch site
 # adds to them.
 LAUNCHES = {"blend_fwd": 0, "blend_bwd": 0}
+# threads (one per pixel) of one sub-tile CTA of each kernel, and the most
+# sub-tiles of one tile (csrc/blend_fwd.cu, blend_bwd.cu, blend_common.cuh)
+FWD_CTA, BWD_CTA, MAX_SPLITS = 256, 128, 8
+
+
+def cta_threads(sub_h: int, sub_w: int) -> int:
+    """Threads of the CTA of a sub_h x sub_w sub-tile: one per pixel, in
+    whole warps (csrc/blend_common.cuh `cta_threads`)."""
+    n = sub_h * sub_w
+    return n if sub_w % 8 == 0 and sub_h % 4 == 0 else -(-n // 32) * 32
+
+
+@functools.lru_cache(maxsize=None)
+def sub_tile_split(tile_h: int, tile_w: int, max_threads: int) -> tuple:
+    """(splits_y, splits_x): how a kernel cuts a tile into sub-tiles of
+    ceil(tile_h / splits_y) x ceil(tile_w / splits_x) pixels, one CTA of at
+    most `max_threads` threads each.  The fewest sub-tiles win, then the
+    fewest idle threads, then the squarest sub-tile; no sub-tile is empty.
+    A 16x32 tile gives (1, 2) for 256 threads (two 16x16 CTAs) and (1, 4)
+    for 128 (four 16x8)."""
+    best = None
+    for sy in range(1, tile_h + 1):
+        sh = -(-tile_h // sy)
+        if (sy - 1) * sh >= tile_h:
+            continue
+        for sx in range(1, tile_w + 1):
+            sw = -(-tile_w // sx)
+            threads = cta_threads(sh, sw)
+            if (sx - 1) * sw >= tile_w or threads > max_threads:
+                continue
+            key = (sy * sx, sy * sx * threads - tile_h * tile_w,
+                   abs(sh - sw), sy)
+            if best is None or key < best[0]:
+                best = (key, (sy, sx))
+            break                   # a larger sx only adds sub-tiles
+    if best is None or best[1][0] * best[1][1] > MAX_SPLITS:
+        raise ValueError(f"blend: a {tile_h}x{tile_w} tile needs more than "
+                         f"{MAX_SPLITS} sub-tiles of {max_threads} pixels")
+    return best[1]
 
 
 def mode_of(cfg: BlendConfig) -> int:
@@ -171,15 +211,16 @@ def blend_fwd_cuda(feats: torch.Tensor, tile_start: torch.Tensor,
                    tile_stop: torch.Tensor, Wp: int, Hp: int,
                    fx: float, fy: float, cx: float, cy: float,
                    cfg: BlendConfig, row0: float = 0.0) -> BlendOutputs:
-    """Launch the CUDA blend-forward kernel on the current stream."""
+    """Launch the CUDA blend forward on the current stream: the tile-order
+    pre-pass and the blend kernel (csrc/blend_fwd.cu), one count in
+    LAUNCHES."""
     from ibgs_tpu_torch.ops import _cuda
 
     _check_inputs(feats, tile_start, tile_stop, Wp, Hp, cfg)
     if feats.device.type != "cuda":
         raise ValueError(f"blend_fwd_cuda: tensors must be on a CUDA device, "
                          f"got {feats.device}")
-    if cfg.tile_h * cfg.tile_w > 1024:
-        raise ValueError("blend_fwd_cuda: a tile may hold at most 1024 pixels")
+    splits = sub_tile_split(cfg.tile_h, cfg.tile_w, FWD_CTA)
     feats = feats.contiguous()
     tile_start = tile_start.contiguous()
     tile_stop = tile_stop.contiguous()
@@ -198,8 +239,9 @@ def blend_fwd_cuda(feats: torch.Tensor, tile_start: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _cuda.blend_fwd(
             feats, tile_start, tile_stop, Wp // cfg.tile_w, Hp // cfg.tile_h,
-            cfg.tile_h, cfg.tile_w, fx, fy, cx, cy, row0, B, mode_of(cfg),
-            out, stream)
+            cfg.tile_h, cfg.tile_w, splits, fx, fy, cx, cy, row0, B,
+            mode_of(cfg), out,
+            torch.empty(tile_start.numel(), dtype=i32, device=dev), stream)
     if err != 0:
         raise RuntimeError(f"blend_fwd kernel launch failed: "
                            f"{_cuda.error_string(err)} ({err})")
@@ -361,8 +403,10 @@ def blend_bwd_cuda(feats: torch.Tensor, tile_start: torch.Tensor,
                    fx: float, fy: float, cx: float, cy: float,
                    cfg: BlendConfig, saved: BlendOutputs, cts,
                    row0: float = 0.0) -> torch.Tensor:
-    """Launch the CUDA blend-backward kernel on the current stream; returns
-    the (n, 16) gradient table (rows the walk never reaches are zero)."""
+    """Launch the CUDA blend backward on the current stream: the tile-order
+    pre-pass and the backward kernel (csrc/blend_bwd.cu), one count in
+    LAUNCHES.  Returns the (n, 16) gradient table (rows the walk never
+    reaches are zero)."""
     from ibgs_tpu_torch.ops import _cuda
 
     _check_inputs(feats, tile_start, tile_stop, Wp, Hp, cfg)
@@ -372,21 +416,24 @@ def blend_bwd_cuda(feats: torch.Tensor, tile_start: torch.Tensor,
                          f"got {feats.device}")
     if cfg.depth_only:
         raise ValueError("blend_bwd_cuda: depth_only has no backward")
-    NP = cfg.tile_h * cfg.tile_w
-    if NP > 512 or NP % 32:
-        raise ValueError("blend_bwd_cuda: a tile must hold a multiple of 32 "
-                         "pixels, at most 512")
+    splits = sub_tile_split(cfg.tile_h, cfg.tile_w, BWD_CTA)
+    S = splits[0] * splits[1]
     c = [t.contiguous() for t in (*_tensors(saved), *cts)]
     feats = feats.contiguous()
     dev = feats.device
-    out = torch.zeros(feats.shape[0], CF, dtype=torch.float32, device=dev)
+    n, f32 = feats.shape[0], torch.float32
+    out = torch.zeros(n, CF, dtype=f32, device=dev)
+    # per-sub-tile rows, summed in sub-tile order by each tile's last CTA
+    scratch = torch.empty(S, n, CF, dtype=f32, device=dev) if S > 1 else None
+    workspace = torch.empty(tile_start.numel() * (2 + S), dtype=torch.int32,
+                            device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _cuda.blend_bwd(
             feats, tile_start.contiguous(), tile_stop.contiguous(),
             Wp // cfg.tile_w, Hp // cfg.tile_h, cfg.tile_h, cfg.tile_w,
-            fx, fy, cx, cy, row0, cfg.buffer_len, mode_of(cfg),
-            c[:7], c[7:], out, stream)
+            splits, fx, fy, cx, cy, row0, cfg.buffer_len, mode_of(cfg),
+            c[:7], c[7:], out, scratch, workspace, stream)
     if err != 0:
         raise RuntimeError(f"blend_bwd kernel launch failed: "
                            f"{_cuda.error_string(err)} ({err})")

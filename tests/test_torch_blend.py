@@ -200,6 +200,38 @@ def test_wrapper_dispatch_cpu_takes_plain():
             *intr, tcfg)
 
 
+@pytest.mark.parametrize("max_threads", [256, 128])
+@pytest.mark.parametrize("tile", [(16, 32), (16, 16), (8, 16), (32, 32),
+                                  (17, 31), (1, 1024), (3, 5), (16, 64),
+                                  (40, 48)])
+def test_sub_tile_split_covers_the_tile(tile, max_threads):
+    """A kernel's sub-tile split covers the tile with the fewest CTAs of at
+    most `max_threads` threads, none of them empty; 16x32 tiles become two
+    16x16 CTAs of 256 threads or four 16x8 of 128."""
+    th, tw = tile
+    if th * tw > 8 * max_threads:
+        with pytest.raises(ValueError):
+            tblend.sub_tile_split(th, tw, max_threads)
+        return
+    sy, sx = tblend.sub_tile_split(th, tw, max_threads)
+    sh, sw = -(-th // sy), -(-tw // sx)
+    assert sh * sy >= th and sw * sx >= tw
+    assert (sy - 1) * sh < th and (sx - 1) * sw < tw
+    assert tblend.cta_threads(sh, sw) <= max_threads
+    assert tblend.cta_threads(sh, sw) % 32 == 0
+    fewest = min(a * b for a in range(1, th + 1) for b in range(1, tw + 1)
+                 if tblend.cta_threads(-(-th // a), -(-tw // b))
+                 <= max_threads)
+    assert sy * sx == fewest
+    if tile == (16, 32):
+        assert (sy, sx) == {256: (1, 2), 128: (1, 4)}[max_threads]
+
+
+def test_sub_tile_split_rejects_huge_tiles():
+    with pytest.raises(ValueError):
+        tblend.sub_tile_split(64, 64, tblend.FWD_CTA)
+
+
 # ---------------------------------------------------------------- backward
 
 _CT_FIELDS = ("color", "normal", "final_t", "buf_depth", "buf_weight")
