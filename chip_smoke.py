@@ -26,7 +26,19 @@ Phases, one JSON line each; any failure makes the exit code 1:
              host clock), each kernel case's share of its bound, the tile
              range lengths (p50, p99, max) per size, peak memory, device
              busy share (torch.profiler)
-  kernels    each kernel with its launches on the serving and train paths
+  loop       the training driver (train/loop.train) on the bundle's 5
+             views at 960x544 from its 91,307 splat centres as seed
+             points: KNN init, a 300-iteration cut of the schedule with
+             densify events at 100, 150 and 200, the opacity reset at 200,
+             an evaluation, a PLY snapshot and a checkpoint at 300, then a
+             resume from it for iteration 301 (depth-cache rebuild).
+             Finite losses, no non-finite gradient, a densify event that
+             changes the alive count, a falling loss, a bit-exact
+             checkpoint, exactly the kernel launches the schedule implies;
+             the native library's exact KNN against the device KNN on the
+             seed cloud
+  kernels    each kernel with its launches on the serving, train and loop
+             paths
 
 then the nvidia-smi line and, last, {"ok": true, "device": {...}}.
 """
@@ -72,6 +84,19 @@ GRAD_COLUMNS = ("mean_x", "mean_y", "conic_a", "conic_b", "conic_c",
                 "normal_z", "dist", "abs_mean_x", "abs_mean_y")
 TRAIN_AUX = ("loss", "image_loss", "normal_loss", "photo_loss", "agg_loss",
              "l1", "psnr")
+# the loop phase's cut of the schedule: colour-only steps up to iteration
+# 110 (geometry from 120 - 2·5 views), aggregation from 151, densify events
+# at 100, 150 and 200, the opacity reset at 200 after that event's densify
+LOOP_SCHEDULE = dict(
+    iterations=300, position_lr_max_steps=300, densify_from_iter=50,
+    densification_interval=50, densify_until_iter=250,
+    opacity_reset_interval=200, single_view_weight_from_iter=120,
+    multi_view_weight_from_iter=120, start_color_aggregation_iter=150,
+    color_aggregate_burnin_steps=50)
+LOOP_TEST_ITERS = (300,)
+LOOP_PROFILE = (60, 10)            # profiled colour-only iterations (from, n)
+LOOP_REPORT_ITERS = (1, 100, 200, 300)
+LOOP_EVAL_VIEWS = 5                # train views an evaluation renders
 
 
 def emit(obj):
@@ -172,6 +197,218 @@ def device_profile(fn, step_ms, top=8):
 def median_range(xs):
     xs = sorted(xs)
     return {"median": xs[len(xs) // 2], "min": xs[0], "max": xs[-1]}
+
+
+def read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def trace_device_ms(path):
+    """Device time (kernels, copies, sets) of a torch.profiler Chrome
+    trace, and its number of device events."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return sum(e.get("dur", 0) for e in dev) / 1e3, len(dev)
+
+
+def loop_phase(d, dev, failures):
+    """The training driver from the bundle's seed cloud, counted: returns
+    (the phase's record, launches of the run, launches of the resume)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from ibgs_tpu_torch import convert
+    from ibgs_tpu_torch.config import (ModelParams, OptimizationParams,
+                                       PipelineParams)
+    from ibgs_tpu_torch.core import knn
+    from ibgs_tpu_torch.models.gaussians import init_from_points
+    from ibgs_tpu_torch.ops import blend
+    from ibgs_tpu_torch.train import checkpoint, loop
+    from ibgs_tpu_torch.utils import native
+
+    def reset_launches():
+        for k in blend.LAUNCHES:
+            blend.LAUNCHES[k] = 0
+
+    wh = SIZES[0]
+    scene = convert.bundle_train_scene(d, wh[0], wh[1], dev)
+    pts, n_train = scene.points, scene.n_train
+    rec = {"phase": "loop", "size": f"{wh[0]}x{wh[1]}", "views": n_train,
+           "seed_points": int(pts.shape[0]),
+           "cameras_extent": scene.cameras_extent,
+           "schedule": dict(LOOP_SCHEDULE, test_iterations=LOOP_TEST_ITERS)}
+
+    # KNN: the native library (built here from native/ibgs_native.cpp)
+    # against the device KNN that init_from_points takes at this size; the
+    # device form |q|² + |p|² - 2q·p keeps a few float32 ulps of max |p|²
+    t0 = time.perf_counter()
+    native.load()
+    native_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exact = native.knn_mean_sq_dist_3(pts)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    pts_dev = torch.as_tensor(pts).to(dev)
+    holder = {}
+    knn_ms = host_ms(lambda: holder.update(
+        d2=knn.mean_sq_dist_to_3nn(pts_dev)))
+    d2 = holder["d2"].cpu().numpy()
+    atol = 4 * float(np.finfo(np.float32).eps) * float((pts ** 2).sum(1).max())
+    err = np.abs(d2 - exact)
+    log_err = np.abs(np.log(np.clip(d2, 1e-7, None))
+                     - np.log(np.clip(exact, 1e-7, None))) / 2
+    if not bool((err <= atol).all()):
+        failures.append(f"loop: device KNN off the native KNN by "
+                        f"{float(err.max())} (> {atol})")
+    init_ms = [host_ms(lambda: init_from_points(pts, scene.colors, 2,
+                                                device=dev))
+               for _ in range(2)]
+    rec["knn"] = {"native_build_s": native_build_s, "native_ms": native_ms,
+                  "device_ms": knn_ms, "max_abs_err_d2": float(err.max()),
+                  "tolerance_d2": atol,
+                  "max_abs_err_log_scale": float(log_err.max()),
+                  "init_from_points_ms": init_ms}
+
+    # the run: 300 iterations, logged at every one (each log line reads
+    # the step's losses, so consecutive elapsed times are iteration times)
+    iters = LOOP_SCHEDULE["iterations"]
+    opt = OptimizationParams(**LOOP_SCHEDULE)
+    p_from, p_num = LOOP_PROFILE
+    out = os.path.join(ROOT, "build", "chip_smoke_loop")
+    shutil.rmtree(out, ignore_errors=True)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, _ = loop.train(
+        scene, ModelParams(sh_degree=2), opt,
+        PipelineParams(profile_from_iter=p_from, profile_num_steps=p_num),
+        out, save_iterations=(iters,), test_iterations=LOOP_TEST_ITERS,
+        checkpoint_iterations=(iters,), quiet=True, seed=24, log_every=1,
+        device=dev)
+    torch.cuda.synchronize()
+    rec["run_s"] = time.perf_counter() - t0
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    run_launches = dict(blend.LAUNCHES)
+
+    log = read_jsonl(os.path.join(out, "train_log.jsonl"))
+    events = read_jsonl(os.path.join(out, "densify_log.jsonl"))
+    by_it = {m["iter"]: m for m in log}
+    for m in log:
+        bad = [k for k in loop.LOSS_KEYS if not math.isfinite(m[k])]
+        if bad or m["nonfinite_grads"]:
+            failures.append(f"loop: iteration {m['iter']}: non-finite {bad}, "
+                            f"{m['nonfinite_grads']} non-finite gradients")
+            break
+    if sorted(by_it) != list(range(1, iters + 1)):
+        failures.append("loop: not every iteration was logged")
+    geo_from = opt.single_view_weight_from_iter - 2 * n_train
+    agg_from = opt.start_color_aggregation_iter
+    skip = ({e["iter"] for e in events} | set(LOOP_TEST_ITERS)
+            | set(range(p_from, p_from + p_num + 1)) | {1})
+    spans = {"color": (2, geo_from), "geometry": (geo_from + 1, agg_from),
+             "geometry_aggregation": (agg_from + 1, iters)}
+    it_ms = {}
+    for name, (a, b) in spans.items():
+        xs = [(by_it[i]["elapsed"] - by_it[i - 1]["elapsed"]) * 1e3
+              for i in range(a, b + 1)
+              if i not in skip and i in by_it and i - 1 in by_it]
+        it_ms[name] = dict(median_range(xs), iterations=[a, b],
+                           counted=len(xs)) if xs else None
+    rec["ms_per_iteration"] = it_ms
+    rec["densify"] = events
+    rec["logged"] = {i: {k: by_it[i][k] for k in
+                         ("image_loss", "psnr", "points", "n_instances")}
+                     for i in LOOP_REPORT_ITERS if i in by_it}
+    if not any(e["n_alive_after"] != e["n_alive_before"] for e in events):
+        failures.append("loop: no densify event changed the alive count")
+    first = np.mean([m["image_loss"] for m in log[:20]])
+    last = np.mean([m["image_loss"] for m in log[-20:]])
+    rec["image_loss_first20_last20"] = [float(first), float(last)]
+    if not last < first:
+        failures.append(f"loop: mean image_loss of the last 20 iterations "
+                        f"{last} is not below the first 20's {first}")
+    want = {"blend_fwd": iters + LOOP_EVAL_VIEWS * sum(
+        1 for i in LOOP_TEST_ITERS if i <= iters), "blend_bwd": iters}
+    if run_launches != want:
+        failures.append(f"loop: kernel launches {run_launches}, expected "
+                        f"{want}")
+    ply = os.path.join(out, "point_cloud", f"iteration_{iters}",
+                       "point_cloud.ply")
+    if not os.path.exists(ply):
+        failures.append("loop: no PLY snapshot")
+
+    # colour-only device time per step, from the loop's own trace window
+    trace = os.path.join(out, "trace", "trace.json")
+    if os.path.exists(trace) and it_ms["color"]:
+        busy, n_dev = trace_device_ms(trace)
+        per_step = busy / p_num
+        rec["color_profile"] = {
+            "iterations": [p_from, p_from + p_num - 1],
+            "device_busy_ms_per_step": per_step,
+            "device_events_per_step": n_dev / p_num,
+            "idle_share": (max(0.0, 1.0 - per_step
+                               / it_ms["color"]["median"])
+                           if n_dev else "not measured")}
+    else:
+        rec["color_profile"] = "not measured"
+
+    # the checkpoint: bit-exact round trip, write / load time
+    ck = os.path.join(out, f"chkpnt{iters}.npz")
+    holder = {}
+    load_ms = host_ms(lambda: holder.update(
+        loaded=checkpoint.load_state(state, ck)))
+    loaded, ck_it = holder["loaded"]
+    save_ms = host_ms(lambda: checkpoint.save_state(
+        state, iters, os.path.join(out, "again.npz")))
+    a, b = checkpoint.state_arrays(state), checkpoint.state_arrays(loaded)
+    same = (ck_it == iters and sorted(a) == sorted(b)
+            and all(a[k].dtype == b[k].dtype
+                    and a[k].tobytes() == b[k].tobytes() for k in a))
+    if not same:
+        failures.append("loop: the loaded checkpoint differs from the state")
+    rec["checkpoint"] = {"bytes": os.path.getsize(ck), "write_ms": save_ms,
+                         "load_ms": load_ms, "bit_exact": same,
+                         "capacity": state.model.capacity,
+                         "ply_bytes": (os.path.getsize(ply)
+                                       if os.path.exists(ply) else None)}
+    del loaded, a, b
+
+    # the resume: iteration 301 from the checkpoint, after the depth-cache
+    # rebuild (one depth_only forward per view)
+    reset_launches()
+    resume_opt = OptimizationParams(**dict(LOOP_SCHEDULE,
+                                           iterations=iters + 1))
+    t0 = time.perf_counter()
+    rstate, rstacks = loop.train(
+        scene, ModelParams(sh_degree=2), resume_opt, PipelineParams(),
+        os.path.join(out, "resume"), save_iterations=(), test_iterations=(),
+        start_checkpoint=ck, quiet=True, seed=24, log_every=1, device=dev)
+    torch.cuda.synchronize()
+    resume_launches = dict(blend.LAUNCHES)
+    rlog = read_jsonl(os.path.join(out, "resume", "train_log.jsonl"))
+    rec["resume"] = {
+        "s": time.perf_counter() - t0, "launches": resume_launches,
+        "logged": [{k: m[k] for k in ("iter", "image_loss", "psnr",
+                                      "points", "nonfinite_grads")}
+                   for m in rlog],
+        "depth_cache_views": int((rstacks["depths"].flatten(1).amax(1)
+                                  > 0).sum())}
+    if ([m["iter"] for m in rlog] != [iters + 1]
+            or not all(math.isfinite(rlog[0][k]) for k in loop.LOSS_KEYS)
+            or rlog[0]["nonfinite_grads"]):
+        failures.append(f"loop: resumed step {rec['resume']['logged']}")
+    if resume_launches != {"blend_fwd": 1 + n_train, "blend_bwd": 1}:
+        failures.append(f"loop: resume launches {resume_launches}, expected "
+                        f"{1 + n_train} blend_fwd and 1 blend_bwd")
+    if rec["resume"]["depth_cache_views"] != n_train:
+        failures.append("loop: the depth cache was not rebuilt for every "
+                        "view")
+    del state, rstate, rstacks
+    shutil.rmtree(out, ignore_errors=True)
+    return rec, run_launches, resume_launches
 
 
 def main():
@@ -602,6 +839,12 @@ def main():
                           for wh in SIZES},
           "serve": serve_ms, "train_step": train_ms})
 
+    # ---- loop: the training driver from the seed cloud, counted ------------
+    del renderers, train_in, bwd_args, preps, outs, state
+    torch.cuda.empty_cache()
+    rec, loop_launches, resume_launches = loop_phase(d, dev, failures)
+    emit(rec)
+
     # ---- kernels -----------------------------------------------------------
     size0 = f"{SIZES[0][0]}x{SIZES[0][1]}"
     fwd_main = next(c for c in fwd_cases
@@ -609,12 +852,16 @@ def main():
     bwd_main = next(c for c in bwd_cases
                     if c["mode"] == "render_geo" and c["size"] == size0)
     launches_by_path = {k: {"serve": serve_launches[k],
-                            "train": train_launches[k]}
+                            "train": train_launches[k],
+                            "loop": loop_launches[k],
+                            "loop_resume": resume_launches[k]}
                         for k in blend.LAUNCHES}
     emit({"phase": "kernels", "launches": launches_by_path})
     for k, by_path in launches_by_path.items():
         if by_path["train"] == 0:
             failures.append(f"{k} was not launched on the training path")
+        if by_path["loop"] == 0:
+            failures.append(f"{k} was not launched on the loop path")
     if serve_launches["blend_fwd"] == 0:
         failures.append("blend_fwd was not launched on the serving path")
     if color_launches["blend_bwd"] != 1:

@@ -8,10 +8,14 @@ argument that defaults to `"cuda"`.
 
 It covers the serving path (`eval.render_driver.EvalRenderer.render_one`:
 depth re-render of the source views, the IBGS geometry render with the
-image-based warp, the colour-fusion net) and the training step
+image-based warp, the colour-fusion net), the training step
 (`train.trainer.make_train_step`: the full IBGS objective, backward through
-the hand-written VJPs, per-group Adam, densification statistics).  The
-blend forward and backward run through hand-written CUDA kernels
+the hand-written VJPs, per-group Adam, densification statistics) and the
+training driver (`train.loop.train`, `python -m ibgs_tpu_torch.train`: a
+scene from its seed cloud through KNN initialisation, the step schedule,
+densify / prune, opacity reset, evaluation, snapshots and checkpoints),
+with the data layer (`data/`).  The blend forward and backward run
+through hand-written CUDA kernels
 (`ops/csrc/blend_fwd.cu`, `ops/csrc/blend_bwd.cu`) on CUDA tensors, and
 through their plain PyTorch versions on CPU tensors.
 """

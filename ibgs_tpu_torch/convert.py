@@ -12,6 +12,12 @@ package's numpy forms.
 * `train_state_from_numpy`: a training state from the parameter fields,
   optional Adam moments, the exposure table and the fusion net, so that
   both packages can start a step from one state.
+* `ring_source_cameras` / `bundle_train_scene`: the bundle's cameras
+  rebuilt exactly, and a training scene (5 views, the seed cloud) from a
+  converged-scene bundle.
+* `train_state_from_jax_checkpoint`: a JAX package `chkpnt<N>.npz`
+  (positional leaves) as a port training state, so a JAX run can be
+  resumed by the port.
 """
 from __future__ import annotations
 
@@ -19,9 +25,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ibgs_tpu_torch.core.camera import Camera, camera_from_view, make_camera
+from ibgs_tpu_torch.core.camera import (Camera, camera_from_view,
+                                        look_at_camera, make_camera)
+from ibgs_tpu_torch.core.sh import C0
 from ibgs_tpu_torch.models.aggregation import ColorFusionResidualNet
-from ibgs_tpu_torch.models.gaussians import (GaussianModel, GaussianParams,
+from ibgs_tpu_torch.models.gaussians import (STAT_FIELDS, GaussianModel,
+                                             GaussianParams,
                                              with_train_state)
 
 PARAM_FIELDS = ("xyz", "sh_dc", "sh_rest", "log_scale", "quat",
@@ -159,3 +168,172 @@ def train_state_from_numpy(d, net=None, mu=None, nu=None, app_ab=None,
         net_opt=(SideOptState.init(list(net.parameters()))
                  if net is not None else None),
         spatial_lr_scale=float(spatial_lr_scale))
+
+
+RING_TARGET, RING_UP = (0.0, 0.0, 0.0), (0.0, -1.0, 0.0)
+
+
+def ring_source_cameras(d, width: int, height: int, device="cuda"):
+    """The bundle's reference and source cameras, rebuilt exactly.  The
+    bundle holds a view of `data/synthetic`'s ring (scripts/
+    make_bench_bundle.py), whose cameras look at the origin with up
+    (0, -1, 0); its `src_ref_to_src` products carry the bf16 rounding of
+    the TPU matmul that made them (source views off by 3.4e-3 to 3.7e-3),
+    while `src_cam_pos` is exact.  So the source cameras are the look-at
+    cameras at `src_cam_pos`.  Raises ValueError for a bundle of another
+    scene (the reference camera not a ring camera, or a source camera more
+    than 1e-2 from its stored transform)."""
+    fovx, fovy = float(d["fovx"]), float(d["fovy"])
+    ref = camera_from_numpy(d["cam_R"], d["cam_t"], fovx, fovy, width,
+                            height, device)
+    ref_view = ref.view.cpu().numpy()
+
+    def ring(eye):
+        return look_at_camera(np.asarray(eye, np.float64), RING_TARGET,
+                              RING_UP, fovx, fovy, width, height, device)
+
+    cams = [ring(c) for c in np.asarray(d["src_cam_pos"])]
+    stored = source_cameras(ref_view, d["src_ref_to_src"], fovx, fovy,
+                            width, height, device)
+    off_ref = float(np.abs(ring(ref.cam_pos.cpu().numpy()).view.cpu()
+                           .numpy() - ref_view).max())
+    off_src = max(float((a.view - b.view).abs().max())
+                  for a, b in zip(cams, stored))
+    if off_ref > 1e-5 or off_src > 1e-2:
+        raise ValueError(f"not a ring bundle: reference camera {off_ref} "
+                         f"and source cameras {off_src} off their look-at "
+                         f"cameras")
+    return ref, cams
+
+
+def bundle_train_scene(d, width: int, height: int, device="cuda"):
+    """A training SceneData from a converged-scene bundle at width x
+    height: 5 train views (the bundle camera with `gt`, the source cameras
+    of `ring_source_cameras` with `src_images`, resized bilinearly), the
+    bundle's splat centres as the seed cloud with colours sh_dc·C0 + 0.5
+    clipped to [0, 1], each view's nearest ids the other four by centre
+    distance, and the nerf++ extent of the 5 centres.  No test views."""
+    from ibgs_tpu_torch.data.dataset import (CameraInfo, SceneData,
+                                             _nerfpp_extent,
+                                             nearest_by_centre)
+
+    ref, src = ring_source_cameras(d, width, height, device)
+    cams = [ref] + src
+    infos = []
+    for k, c in enumerate(cams):
+        view = c.view.cpu().numpy()
+        infos.append(CameraInfo(
+            uid=k, R=view[:3, :3].T, T=view[:3, 3], fovx=float(d["fovx"]),
+            fovy=float(d["fovy"]), width=width, height=height,
+            image_path=f"bundle_{k}", image_name=f"bundle_{k}"))
+    images = _resize(np.concatenate([np.asarray(d["gt"])[None],
+                                     np.asarray(d["src_images"])]),
+                     height, width, "cpu").numpy()
+    centers = np.stack([c.cam_pos.cpu().numpy() for c in cams])
+    sh_dc = np.asarray(d["sh_dc"], np.float32).reshape(-1, 3)
+    return SceneData(
+        train_cameras=cams, test_cameras=[], train_infos=infos,
+        test_infos=[], images=images.astype(np.float32),
+        test_images=np.zeros((0, height, width, 3), np.float32),
+        points=np.asarray(d["xyz"], np.float32),
+        colors=np.clip(sh_dc * np.float32(C0) + np.float32(0.5), 0.0,
+                       1.0).astype(np.float32),
+        cameras_extent=_nerfpp_extent(infos),
+        nearest_ids=nearest_by_centre(centers),
+        test_nearest_ids=[], white_background=False)
+
+
+def _flax_net_leaves() -> list:
+    """The fusion net's Flax parameter paths in the order jax.tree
+    flattens them (dict keys sorted)."""
+    names = []
+    for i in range(9):
+        names += [f"ConvDecoderAE_0.Conv_{i}.bias",
+                  f"ConvDecoderAE_0.Conv_{i}.kernel"]
+    for k in ("Dense_0", "Dense_1"):
+        names += [f"{k}.bias", f"{k}.kernel"]
+    return names
+
+
+def _jax_leaf_names(with_net: bool) -> list:
+    """The names of the positional leaves of a JAX package checkpoint, in
+    the order of its TrainState's flattening: the GaussianModel fields in
+    declaration order (params, mu, nu as 8 fields each, step, alive, the
+    five statistics, active_sh_degree), app_ab, app_opt (mu, nu, step),
+    the Flax net tree, net_opt (mu tree, nu tree, step) and
+    spatial_lr_scale."""
+    names = [f"{tree}.{k}" for tree in ("params", "mu", "nu")
+             for k in PARAM_FIELDS]
+    names += ["step", "alive", *STAT_FIELDS, "active_sh_degree", "app_ab",
+              "app_opt.mu", "app_opt.nu", "app_opt.step"]
+    if with_net:
+        net = _flax_net_leaves()
+        names += [f"net.{n}" for n in net]
+        names += [f"net_opt.mu.{n}" for n in net]
+        names += [f"net_opt.nu.{n}" for n in net]
+        names += ["net_opt.step"]
+    return names + ["spatial_lr_scale"]
+
+
+def _flax_tree(d: dict, prefix: str) -> dict:
+    """The nested Flax parameter tree of the leaves `prefix`<path> of d."""
+    tree = {}
+    for name in _flax_net_leaves():
+        *mods, leaf = name.split(".")
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = d[prefix + name]
+    return tree
+
+
+def train_state_from_jax_checkpoint(path: str, net=None, device="cuda"):
+    """(TrainState, iteration) from a JAX package checkpoint.  `net` is a
+    ColorFusionResidualNet whose aggregation mode the restored net takes
+    (None for a run without colour aggregation); the saved weights and
+    moments go through `fusion_net_from_flax`."""
+    from ibgs_tpu_torch.train.trainer import SideOptState, TrainState
+
+    with np.load(path) as data:
+        n = sum(k.startswith("leaf_") for k in data.files)
+        names = _jax_leaf_names(net is not None)
+        if n != len(names):
+            raise ValueError(f"{path}: {n} leaves, expected {len(names)} "
+                             f"for a run {'with' if net else 'without'} "
+                             f"the fusion net")
+        d = {name: data[f"leaf_{i}"] for i, name in enumerate(names)}
+        iteration = int(data["__iteration"])
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    def tree(prefix):
+        return GaussianParams(**{k: t(d[f"{prefix}.{k}"])
+                                 for k in PARAM_FIELDS})
+
+    params = tree("params")
+    model = GaussianModel(
+        params=params, alive=t(d["alive"]),
+        active_sh_degree=int(d["active_sh_degree"]),
+        max_sh_degree=_SH_DEGREE[params.sh_rest.shape[1]],
+        mu=tree("mu"), nu=tree("nu"), step=int(d["step"]),
+        **{k: t(d[k]) for k in STAT_FIELDS})
+    app_opt = SideOptState(mu=[t(d["app_opt.mu"])], nu=[t(d["app_opt.nu"])],
+                           step=int(d["app_opt.step"]))
+    net_opt = None
+    if net is not None:
+        def as_net(prefix):
+            return fusion_net_from_flax(_flax_tree(d, prefix),
+                                        net.feat_aggregate_mode, device)
+
+        def moments(prefix):
+            return [p.detach() for p in as_net(prefix).parameters()]
+
+        net = as_net("net.")
+        net_opt = SideOptState(mu=moments("net_opt.mu."),
+                               nu=moments("net_opt.nu."),
+                               step=int(d["net_opt.step"]))
+    state = TrainState(model=model, app_ab=t(d["app_ab"]), app_opt=app_opt,
+                       net=net, net_opt=net_opt,
+                       spatial_lr_scale=float(d["spatial_lr_scale"]))
+    return state, iteration

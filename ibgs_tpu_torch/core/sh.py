@@ -19,6 +19,11 @@ def num_coeffs(degree: int) -> int:
     return (degree + 1) ** 2
 
 
+def rgb_to_sh0(rgb: torch.Tensor) -> torch.Tensor:
+    """The DC coefficient that shades to `rgb`."""
+    return (rgb - 0.5) / C0
+
+
 def sh_basis(dirs: torch.Tensor, degree: int) -> torch.Tensor:
     """(…, 3) unit directions → (…, (degree+1)^2) SH basis values."""
     x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]

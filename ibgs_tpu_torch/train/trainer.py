@@ -1,24 +1,27 @@
-"""Training step (counterpart of ibgs_tpu/train/trainer.py).
+"""Training step and maintenance (counterpart of
+ibgs_tpu/train/trainer.py).
 
 One step: render with the image-based warp → the full IBGS objective →
 backward through every hand-written VJP (blend, pack_rows, warp) → per-group
 Adam on the Gaussians, Adam on the exposure table and the fusion net →
 densification statistics.  The phase flags that change the computation
 (geometry rendering on, aggregation on) select the step variant, as in
-the JAX package.  The loop, densification and checkpointing are still to
-port.
+the JAX package.  `densify_step` and `maybe_grow` are the maintenance the
+training loop (train/loop.py) runs between steps.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from ibgs_tpu_torch import renderer
 from ibgs_tpu_torch.config import OptimizationParams
 from ibgs_tpu_torch.core.camera import Camera
 from ibgs_tpu_torch.models import aggregation
+from ibgs_tpu_torch.models import gaussians
 from ibgs_tpu_torch.models.gaussians import (PARAM_FIELDS, GaussianModel,
                                              GaussianParams, LRConfig,
                                              accumulate_stats, adam_step,
@@ -240,3 +243,26 @@ def make_train_step(opt: OptimizationParams, rcfg: RasterConfig,
                                    app_opt=app_opt, net_opt=net_opt), aux
 
     return step
+
+
+# ------------------------------------------------------------ maintenance
+
+def densify_step(model: GaussianModel, gen: torch.Generator,
+                 cfg: gaussians.DensifyConfig, extent: float,
+                 max_screen: Optional[float] = None) -> GaussianModel:
+    """densify_and_prune with the event's noise drawn from `gen`."""
+    noise = gaussians.densify_noise(gen, model.capacity, model.alive.device)
+    return gaussians.densify_and_prune(model, noise, cfg, extent,
+                                       max_screen_size=max_screen)
+
+
+def maybe_grow(model: GaussianModel, max_all_points: int):
+    """Double the capacity when more than 90% of the slots are alive and
+    the capacity is below `max_all_points` (capped at the power of two
+    above it).  Reads the alive count from the device.  Returns (model,
+    new capacity or None)."""
+    cap = model.capacity
+    if int(model.alive.sum()) > 0.9 * cap and cap < max_all_points:
+        newcap = min(cap * 2, 1 << int(np.ceil(np.log2(max_all_points))))
+        return gaussians.grow_capacity(model, newcap), newcap
+    return model, None

@@ -1,0 +1,45 @@
+"""Tracing (counterpart of ibgs_tpu/utils/profiling.py).
+
+`trace(logdir)` captures a `torch.profiler` trace (host ops and, on a
+card, its kernels) of the code it wraps and writes it as a Chrome trace
+(viewable in Perfetto or chrome://tracing).  The training loop opens it
+over the `--profile_from_iter` / `--profile_num_steps` window.
+`step_annotation` labels one training step in that trace, and in an
+Nsight timeline through NVTX when the device is a card.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(logdir):
+    """Capture a torch.profiler trace into `logdir`/trace.json (no-op if
+    falsy)."""
+    if not logdir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(logdir, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+@contextlib.contextmanager
+def step_annotation(name: str, step: int, device="cpu"):
+    """Label one training step (`name` #`step`) in the trace timeline."""
+    label = f"{name}#{step}"
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(torch.profiler.record_function(label))
+        if torch.device(device).type == "cuda":
+            stack.enter_context(torch.cuda.nvtx.range(label))
+        yield
+

@@ -335,3 +335,137 @@ def test_bwd_kernel_empty_and_bad_inputs():
     with pytest.raises(ValueError):        # CPU tensors
         blend.blend_bwd_cuda(torch.zeros(4, 13), z.cpu(), z.cpu(), 64, 16,
                              10.0, 10.0, 32.0, 8.0, cfg, saved, cts)
+
+
+# ---------------------------------------------- densify, KNN and the loop
+
+def _densify_state(r, P=4096, n_alive=1500):
+    """A model with random parameters, moments and statistics that clone,
+    split (also through the absolute-gradient path) and prune."""
+    from ibgs_tpu_torch.models import gaussians as tg
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32))
+
+    alive = np.zeros(P, bool)
+    alive[r.choice(P, n_alive, replace=False)] = True
+    big = r.uniform(size=P) < 0.4
+    shapes = dict(xyz=(P, 3), sh_dc=(P, 1, 3), sh_rest=(P, 8, 3),
+                  log_scale=(P, 3), quat=(P, 4), opacity_logit=(P, 1),
+                  normal=(P, 3), offset=(P, 1))
+    params = {k: r.normal(size=s) for k, s in shapes.items()}
+    params["log_scale"] = np.where(big[:, None], r.uniform(-3, 0, (P, 3)),
+                                   r.uniform(-9, -7, (P, 3)))
+    denom = r.integers(0, 8, P)
+    return tg.GaussianModel(
+        params=tg.GaussianParams(**{k: t(v) for k, v in params.items()}),
+        mu=tg.GaussianParams(**{k: t(np.abs(r.normal(size=s)))
+                                for k, s in shapes.items()}),
+        nu=tg.GaussianParams(**{k: t(np.abs(r.normal(size=s)))
+                                for k, s in shapes.items()}),
+        alive=torch.as_tensor(alive), active_sh_degree=2, max_sh_degree=2,
+        step=3, denom=t(denom), denom_abs=t(denom),
+        grad_accum=t(r.uniform(0, 6e-4, P) * denom),
+        grad_accum_abs=t(r.uniform(0, 2e-3, P) * denom),
+        max_radii2d=t(r.uniform(0, 60, P)))
+
+
+def _to(model, dev):
+    from ibgs_tpu_torch.models import gaussians as tg
+
+    def tree(p):
+        return tg.GaussianParams(**{k: getattr(p, k).to(dev)
+                                    for k in tg.PARAM_FIELDS})
+    return dataclasses.replace(
+        model, params=tree(model.params), mu=tree(model.mu),
+        nu=tree(model.nu), alive=model.alive.to(dev),
+        **{k: getattr(model, k).to(dev) for k in tg.STAT_FIELDS})
+
+
+@pytest.mark.gpu
+def test_densify_and_prune_on_the_card_matches_the_cpu():
+    """Slot for slot: the alive mask exactly, every float within 1e-6
+    (the card's sampled positions round differently in the rotation)."""
+    dev = _cuda()
+    from ibgs_tpu_torch.models import gaussians as tg
+    r = np.random.default_rng(7)
+    model = _densify_state(r)
+    noise = torch.as_tensor(r.normal(size=(3, 4096, 3)).astype(np.float32))
+    cfg = tg.DensifyConfig(max_abs_split=40)
+    for max_screen in (None, 20.0):
+        want = tg.densify_and_prune(model, noise, cfg, 1.7, max_screen)
+        got = tg.densify_and_prune(_to(model, dev), noise.to(dev), cfg, 1.7,
+                                   max_screen)
+        assert torch.equal(got.alive.cpu(), want.alive)
+        assert int(want.alive.sum()) != int(model.alive.sum())
+        for tree in ("params", "mu", "nu"):
+            for k in tg.PARAM_FIELDS:
+                np.testing.assert_allclose(
+                    getattr(getattr(got, tree), k).cpu().numpy(),
+                    getattr(getattr(want, tree), k).numpy(), rtol=1e-6,
+                    atol=1e-6, err_msg=f"{tree}.{k}")
+        for k in tg.STAT_FIELDS:
+            assert not getattr(got, k).any()
+
+
+@pytest.mark.gpu
+def test_knn_on_the_card_matches_the_cpu():
+    """Mean squared 3-NN distances within 4 float32 ulps of max |p|²
+    (1.4e-6 here), with TF32 switched off at the call even when the caller
+    allows it: TF32's 10-bit inputs would err by about 1e-3 |p|².  The
+    log-scales are not compared at that level: the log turns the d²
+    rounding of the closest pairs into up to 1e-4."""
+    dev = _cuda()
+    from ibgs_tpu_torch.core import knn
+    pts = torch.as_tensor(np.random.default_rng(8).uniform(
+        -1, 1, (5000, 3)).astype(np.float32))
+    want = knn.mean_sq_dist_to_3nn(pts)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = knn.mean_sq_dist_to_3nn(pts.to(dev))
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    atol = 4 * float(np.finfo(np.float32).eps) * float(
+        (pts ** 2).sum(1).max())
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=atol)
+    assert bool(torch.isfinite(knn.initial_log_scales(pts.to(dev))).all())
+
+
+@pytest.mark.gpu
+def test_training_loop_on_the_card(tmp_path):
+    """20 iterations of train() on the synthetic scene at 64x64 with two
+    densify events: finite losses and exactly one launch of each kernel
+    per iteration."""
+    dev = _cuda()
+    import json
+    import math
+
+    from ibgs_tpu_torch.config import (ModelParams, OptimizationParams,
+                                       PipelineParams)
+    from ibgs_tpu_torch.data.synthetic import make_synthetic_scene
+    from ibgs_tpu_torch.train import loop
+
+    scene = make_synthetic_scene(n_views=6, width=64, height=64, n_gt=1200,
+                                 n_seed=400, device=dev)
+    opt = OptimizationParams(
+        iterations=20, densify_from_iter=4, densification_interval=6,
+        densify_until_iter=20, single_view_weight_from_iter=14,
+        multi_view_weight_from_iter=14, start_color_aggregation_iter=12,
+        number_src_frames=2)
+    for k in blend.LAUNCHES:
+        blend.LAUNCHES[k] = 0
+    state, stacks = loop.train(scene, ModelParams(), opt, PipelineParams(),
+                               str(tmp_path), save_iterations=(),
+                               test_iterations=(), log_every=1, quiet=True,
+                               device=dev)
+    torch.cuda.synchronize()
+    assert blend.LAUNCHES == {"blend_fwd": 20, "blend_bwd": 20}
+    with open(tmp_path / "train_log.jsonl") as f:
+        log = [json.loads(line) for line in f]
+    assert [m["iter"] for m in log] == list(range(1, 21))
+    assert all(math.isfinite(m[k]) for m in log for k in loop.LOSS_KEYS)
+    assert all(m["nonfinite_grads"] == 0 for m in log)
+    assert state.model.alive.is_cuda and state.model.step == 20
