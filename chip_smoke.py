@@ -37,8 +37,21 @@ Phases, one JSON line each; any failure makes the exit code 1:
              checkpoint, exactly the kernel launches the schedule implies;
              the native library's exact KNN against the device KNN on the
              seed cloud
-  kernels    each kernel with its launches on the serving, train and loop
-             paths
+  eval       the evaluation path on the loop's model directory (its PLY
+             and checkpoint at 300) with the bundle view as a test view:
+             `render.render_model` (the PNG source dump, the test split
+             with FPS, the 5 train views, the TSDF mesh at a voxel of the
+             largest extent / 256), `metrics.evaluate_model_dir`, 12 video
+             frames and one viewer frame over a loopback socket.  Finite
+             images, depths and vertices, the PNG counts, each PNG decoding
+             to the truncated float it was written from, exactly the
+             forward launches the calls imply and no backward, the card's
+             TSDF against the CPU's integration of the same inputs, a
+             non-empty mesh, SSIM on the card against the CPU, LPIPS null;
+             the bundle model's source depths at the ring cameras against
+             the bundle's cached ones
+  kernels    each kernel with its launches on the serving, train, loop and
+             eval paths
 
 then the nvidia-smi line and, last, {"ok": true, "device": {...}}.
 """
@@ -97,6 +110,16 @@ LOOP_TEST_ITERS = (300,)
 LOOP_PROFILE = (60, 10)            # profiled colour-only iterations (from, n)
 LOOP_REPORT_ITERS = (1, 100, 200, 300)
 LOOP_EVAL_VIEWS = 5                # train views an evaluation renders
+LOOP_DIR = os.path.join(ROOT, "build", "chip_smoke_loop")
+EVAL_FPS_LOOPS = 5                 # render_split's timed passes (its default)
+EVAL_VIDEO_FRAMES = 12
+EVAL_VOXEL_DIVISOR = 256           # voxel = largest extent of the bounds / 256
+# the card's TSDF against the CPU's: equal weights, tsdf and colour within
+# TSDF_TOL where the weight is positive, on all but TSDF_MISMATCH_SHARE of
+# the voxels (a pixel index that flips at a rounding tie moves a voxel whole)
+TSDF_TOL, TSDF_MISMATCH_SHARE = 1e-5, 1e-4
+SSIM_TOL = 1e-5                    # SSIM on the card against the CPU
+VIEWER_TIMEOUT_S = 30
 
 
 def emit(obj):
@@ -277,7 +300,7 @@ def loop_phase(d, dev, failures):
     iters = LOOP_SCHEDULE["iterations"]
     opt = OptimizationParams(**LOOP_SCHEDULE)
     p_from, p_num = LOOP_PROFILE
-    out = os.path.join(ROOT, "build", "chip_smoke_loop")
+    out = LOOP_DIR
     shutil.rmtree(out, ignore_errors=True)
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -363,6 +386,7 @@ def loop_phase(d, dev, failures):
     loaded, ck_it = holder["loaded"]
     save_ms = host_ms(lambda: checkpoint.save_state(
         state, iters, os.path.join(out, "again.npz")))
+    os.remove(os.path.join(out, "again.npz"))
     a, b = checkpoint.state_arrays(state), checkpoint.state_arrays(loaded)
     same = (ck_it == iters and sorted(a) == sorted(b)
             and all(a[k].dtype == b[k].dtype
@@ -407,8 +431,305 @@ def loop_phase(d, dev, failures):
         failures.append("loop: the depth cache was not rebuilt for every "
                         "view")
     del state, rstate, rstacks
-    shutil.rmtree(out, ignore_errors=True)
+    shutil.rmtree(os.path.join(out, "resume"), ignore_errors=True)
     return rec, run_launches, resume_launches
+
+
+
+def eval_phase(d, dev, failures):
+    """The evaluation path on the loop phase's model directory, counted:
+    returns (the phase's record, the forward / backward launches of the
+    counted calls)."""
+    import contextlib
+    import shutil
+    import socket
+    import struct
+    import threading
+
+    import numpy as np
+    import torch
+    from ibgs_tpu_torch import convert
+    from ibgs_tpu_torch import render as render_cli
+    from ibgs_tpu_torch.config import (ModelParams, OptimizationParams,
+                                       PipelineParams)
+    from ibgs_tpu_torch.eval import render_driver, tsdf, video, viewer
+    from ibgs_tpu_torch.eval.metrics import evaluate_model_dir, ssim
+    from ibgs_tpu_torch.ops import blend
+    from ibgs_tpu_torch.ops.rasterize import RasterConfig
+    from ibgs_tpu_torch.renderer import (render_depth_view, render_view,
+                                         source_views_from_stacks)
+    from ibgs_tpu_torch.utils import image_io
+
+    t_phase = time.perf_counter()
+    wh = SIZES[0]
+    model_dir = LOOP_DIR
+    it = LOOP_SCHEDULE["iterations"]
+    scene = convert.bundle_eval_scene(d, wh[0], wh[1], dev)
+    mp, pipe = ModelParams(sh_degree=2), PipelineParams()
+    opt = OptimizationParams(**LOOP_SCHEDULE)
+    pts = scene.points
+    span = (pts.max(0) + 0.2 * np.ptp(pts, 0)) - (pts.min(0)
+                                                   - 0.2 * np.ptp(pts, 0))
+    voxel = float(span.max()) / EVAL_VOXEL_DIVISOR
+    rec = {"phase": "eval", "size": f"{wh[0]}x{wh[1]}", "iteration": it,
+           "test_views": len(scene.test_cameras), "train_views": scene.n_train,
+           "src_image_ext": "png (no JPEG codec is assumed on the card)",
+           "voxel": voxel}
+
+    # what the path writes, recorded on the way: each PNG's float image
+    # (finite?) and its truncated 8 bits; each TSDF integration's inputs
+    # and time, the marching time
+    written = {}
+    real_save = render_driver._save_png
+
+    def save_png(path, img):
+        arr = img.detach().cpu().numpy() if torch.is_tensor(img) \
+            else np.asarray(img)
+        written[path] = (bool(np.isfinite(arr).all()),
+                         (np.clip(arr, 0, 1) * 255).astype(np.uint8))
+        real_save(path, img)
+
+    fused = {}
+
+    class RecordingVolume(tsdf.TSDFVolume):
+        def __init__(self, lo, hi, voxel_size, **kw):
+            super().__init__(lo, hi, voxel_size=voxel_size, **kw)
+            fused.update(volume=self, bounds=(lo, hi, voxel_size),
+                         inputs=[], ms=[])
+
+        def integrate(self, depth, image, K, w2c, **kw):
+            fused["inputs"].append(
+                [x.detach().cpu().numpy() if torch.is_tensor(x)
+                 else np.array(x) for x in (depth, image, K, w2c)])
+            fused["ms"].append(host_ms(
+                lambda: super(RecordingVolume, self).integrate(
+                    depth, image, K, w2c, **kw)))
+
+        def extract_mesh(self, **kw):
+            t0 = time.perf_counter()
+            out = super().extract_mesh(**kw)
+            fused["marching_ms"] = (time.perf_counter() - t0) * 1e3
+            return out
+
+    for k in blend.LAUNCHES:
+        blend.LAUNCHES[k] = 0
+    render_driver._save_png = save_png
+    tsdf.TSDFVolume, real_volume = RecordingVolume, tsdf.TSDFVolume
+    t0 = time.perf_counter()
+    try:
+        # the CLI's printed summary goes to stderr: stdout holds JSON lines
+        with contextlib.redirect_stdout(sys.stderr):
+            res = render_cli.render_model(
+                scene, mp, opt, pipe, model_dir, it, render_geo=True,
+                voxel_size=voxel, use_depth_filter=True,
+                src_image_ext="png", device=dev)
+    finally:
+        render_driver._save_png = real_save
+        tsdf.TSDFVolume = real_volume
+    torch.cuda.synchronize()
+    rec["render_model_s"] = time.perf_counter() - t0
+    n_test, n_train = len(scene.test_cameras), scene.n_train
+    rec["fps"] = res["fps"]
+    rec["ms_per_view"] = 1e3 / res["fps"]
+    rec["model_mb"], rec["memory"] = res["model_mb"], res["memory"]
+    rec["n_gaussians"] = res["n_gaussians"]
+
+    # the files: counts, finite values, each PNG's decode
+    counts = {}
+    for split, n in (("test", n_test), ("train", n_train)):
+        for sub in ("renders", "renders_aggregate", "gt", "depth", "normal"):
+            dd = os.path.join(model_dir, split, f"ours_{it}", sub)
+            got = len(os.listdir(dd)) if os.path.isdir(dd) else 0
+            counts[f"{split}/{sub}"] = got
+            if got != n:
+                failures.append(f"eval: {got} PNGs in {split}/{sub}, "
+                                f"expected {n}")
+    rec["png_counts"] = counts
+    bad_decode = [p for p, (_, want) in written.items()
+                  if not np.array_equal(image_io.read_image(p), want)]
+    nonfinite = [p for p, (fin, _) in written.items() if not fin]
+    rec["png_written"] = len(written)
+    if bad_decode or nonfinite:
+        failures.append(f"eval: PNGs decoding to other bytes {bad_decode[:3]}"
+                        f", non-finite images {nonfinite[:3]}")
+
+    # the TSDF: the card's volume against the CPU's on the same inputs
+    vol = fused["volume"]
+    lo, hi, vsz = fused["bounds"]
+    cpu = real_volume(lo, hi, voxel_size=vsz, device="cpu")
+    t0 = time.perf_counter()
+    for depth, image, K, w2c in fused["inputs"]:
+        cpu.integrate(depth, image, K, w2c)
+    cpu_ms = (time.perf_counter() - t0) * 1e3 / max(len(fused["inputs"]), 1)
+    w_card, w_cpu = vol.weight.cpu(), cpu.weight
+    pos = w_cpu > 0
+    off = ((vol.tsdf.cpu() - cpu.tsdf).abs() > TSDF_TOL) \
+        | ((vol.color.cpu() - cpu.color).abs() > TSDF_TOL).any(-1)
+    off = (off & pos) | (w_card != w_cpu)
+    n_vox = w_cpu.numel()
+    mesh_v, mesh_f = tsdf.load_mesh_ply(os.path.join(model_dir, "mesh.ply"))
+    rec["tsdf"] = {
+        "grid": list(vol.dims), "voxels": n_vox, "ms_per_integration":
+        fused["ms"], "cpu_ms_per_integration": cpu_ms,
+        "marching_ms": fused["marching_ms"],
+        "observed_voxels": int(pos.sum()),
+        "weight_mismatch_voxels": int((w_card != w_cpu).sum()),
+        "off_voxels": int(off.sum()), "tolerance": TSDF_TOL,
+        "max_abs_err_tsdf": float((vol.tsdf.cpu() - cpu.tsdf).abs()[pos]
+                                  .max()) if pos.any() else 0.0,
+        "mesh_vertices": len(mesh_v), "mesh_faces": len(mesh_f)}
+    if int(off.sum()) > TSDF_MISMATCH_SHARE * n_vox:
+        failures.append(f"eval: TSDF card vs CPU off on {int(off.sum())} of "
+                        f"{n_vox} voxels")
+    if not len(mesh_f) or not np.isfinite(mesh_v).all():
+        failures.append(f"eval: mesh of {len(mesh_v)} vertices, "
+                        f"{len(mesh_f)} faces, finite "
+                        f"{bool(np.isfinite(mesh_v).all())}")
+    del vol, cpu, fused["volume"], fused["inputs"]
+
+    # metrics, and SSIM on the card against the CPU
+    t0 = time.perf_counter()
+    scores = evaluate_model_dir(model_dir, device=dev)
+    rec["metrics_s"] = time.perf_counter() - t0
+    rec["metrics"] = scores
+    if sorted(scores) != [f"ours_{it}/renders", f"ours_{it}/renders_aggregate"]:
+        failures.append(f"eval: metrics for {sorted(scores)}")
+    if any(v["lpips"] is not None for v in scores.values()):
+        failures.append("eval: LPIPS is not null without weights")
+    base = os.path.join(model_dir, "test", f"ours_{it}")
+    ssim_err = 0.0
+    for split in ("renders", "renders_aggregate"):
+        for nm in sorted(os.listdir(os.path.join(base, split))):
+            r = (image_io.read_image(os.path.join(base, split, nm))
+                 / 255.0).astype(np.float32)
+            g = (image_io.read_image(os.path.join(base, "gt", nm))
+                 / 255.0).astype(np.float32)
+            ssim_err = max(ssim_err, abs(ssim(r, g, dev) - ssim(r, g, "cpu")))
+    rec["ssim_card_vs_cpu"] = ssim_err
+    if not ssim_err <= SSIM_TOL:
+        failures.append(f"eval: SSIM card vs CPU {ssim_err} > {SSIM_TOL}")
+
+    # the fly-through video and one viewer frame, from an EvalRenderer over
+    # the same model and net
+    model, _ = render_cli.model_from_ply(
+        os.path.join(model_dir, "point_cloud", f"iteration_{it}",
+                     "point_cloud.ply"), mp.sh_degree, dev)
+    net, _ = render_cli.restore_net(model, opt, model_dir, dev)
+    rcfg = RasterConfig(buffer_len=opt.buffer_length,
+                        depth_error_threshold=opt.depth_error_threshold,
+                        staircase_cull=pipe.staircase_cull)
+    ev = render_driver.EvalRenderer.from_scene(model, net, scene, opt, rcfg,
+                                               dev)
+    t0 = time.perf_counter()
+    vpath = video.render_video(ev, os.path.join(model_dir, "video.mp4"),
+                               n_frames=EVAL_VIDEO_FRAMES)
+    torch.cuda.synchronize()
+    if os.path.isdir(vpath):           # the PNG sequence (no cv2)
+        frames = len(os.listdir(vpath))
+    else:                              # cv2 wrote an mp4: count its frames
+        import cv2
+        cap = cv2.VideoCapture(vpath)
+        frames = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        cap.release()
+    rec["video"] = {"path": os.path.relpath(vpath, model_dir),
+                    "frames": frames, "ms_per_frame":
+                    (time.perf_counter() - t0) * 1e3 / EVAL_VIDEO_FRAMES}
+    if frames != EVAL_VIDEO_FRAMES:
+        failures.append(f"eval: {frames} video frames written")
+
+    cam = scene.test_cameras[0]
+    wvt = cam.view.cpu().numpy().astype(np.float64).T
+    wvt[:, 1] *= -1.0
+    wvt[:, 2] *= -1.0
+    msg = json.dumps({
+        "resolution_x": wh[0], "resolution_y": wh[1], "train": True,
+        "fov_x": float(d["fovx"]), "fov_y": float(d["fovy"]),
+        "z_near": 0.01, "z_far": 100.0, "keep_alive": True,
+        "scaling_modifier": 1.0, "view_matrix": wvt.reshape(-1).tolist(),
+        "view_projection_matrix": np.eye(4).reshape(-1).tolist()}).encode()
+    port = viewer.init(port=0)
+    reply = {}
+
+    def client():
+        with socket.create_connection(("127.0.0.1", port),
+                                      timeout=VIEWER_TIMEOUT_S) as c:
+            c.sendall(struct.pack("<i", len(msg)) + msg)
+            want, buf = wh[0] * wh[1] * 3, b""
+            while len(buf) < want + 4:
+                chunk = c.recv(want + 4 - len(buf))
+                if not chunk:
+                    break
+                buf += chunk
+            (n,) = struct.unpack("<i", buf[want:want + 4])
+            reply["image"] = buf[:want]
+            reply["verify"] = c.recv(n).decode()
+            reply["t"] = time.perf_counter()
+
+    frame = {}
+
+    def render_fn(cam, msg):
+        # the training loop's viewer render: a Gaussian render at the
+        # viewer's resolution with sources off
+        src = source_views_from_stacks(
+            ev.stacks["images"], torch.zeros_like(ev.stacks["images"][..., 0]),
+            ev.stacks["w2v"], ev.stacks["centers"],
+            torch.zeros(rcfg.max_src, dtype=torch.long, device=dev), 0, cam)
+        img = render_view(model, cam, rcfg, torch.zeros(3, device=dev),
+                          src=src, learnt_normal=opt.learnt_normal,
+                          return_depth_normal=False)[0].render
+        frame["bytes"] = (np.clip(img.cpu().numpy(), 0, 1) * 255).astype(
+            np.uint8).tobytes()
+        return img
+
+    thread = threading.Thread(target=client, daemon=True)
+    viewer_launches = {}
+    try:
+        before = dict(blend.LAUNCHES)
+        t0 = time.perf_counter()
+        thread.start()
+        while "bytes" not in frame and time.perf_counter() - t0 \
+                < VIEWER_TIMEOUT_S:
+            viewer.serve_once(render_fn, verify="ok", device=dev)
+            time.sleep(0.001)
+        thread.join(timeout=VIEWER_TIMEOUT_S)
+        viewer_launches = {k: blend.LAUNCHES[k] - before[k] for k in before}
+    finally:
+        viewer.shutdown()
+    ok = (not thread.is_alive() and reply.get("verify") == "ok"
+          and reply.get("image") == frame.get("bytes"))
+    rec["viewer"] = {"ms": (reply["t"] - t0) * 1e3 if "t" in reply else None,
+                     "bytes": len(reply.get("image", b"")), "ok": ok,
+                     "launches": viewer_launches}
+    if not ok:
+        failures.append("eval: the viewer frame did not come back intact")
+    launches = dict(blend.LAUNCHES)
+
+    # the bundle model's source depths at the ring cameras against the
+    # bundle's cached ones (uncounted)
+    bundle = convert.bundle_scene(d, wh[0], wh[1], dev)
+    agree = []
+    for i in range(bundle["count"]):
+        dd = render_depth_view(bundle["model"], scene.train_cameras[1 + i],
+                               rcfg, opt.learnt_normal)
+        ref = bundle["src_depths"][i]
+        has = ref > 0
+        ok_px = ((dd - ref).abs() <= 0.01 * ref) & has
+        agree.append(round(float(ok_px.sum()) / max(int(has.sum()), 1), 4))
+    rec["src_depth_agree_1pct_ring"] = agree
+
+    per_view = opt.number_src_frames + 1
+    want = {"blend_fwd": per_view * (
+        (EVAL_FPS_LOOPS + 1) * n_test + n_test + 2 * n_train
+        + EVAL_VIDEO_FRAMES) + 1, "blend_bwd": 0}
+    rec["launches"], rec["launches_expected"] = launches, want
+    if launches != want:
+        failures.append(f"eval: kernel launches {launches}, expected {want}")
+    if not all(math.isfinite(rec[k]) for k in ("fps", "model_mb", "memory")):
+        failures.append(f"eval: fps / model_mb / memory {rec['fps']}, "
+                        f"{rec['model_mb']}, {rec['memory']}")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec, launches
 
 
 def main():
@@ -845,6 +1166,11 @@ def main():
     rec, loop_launches, resume_launches = loop_phase(d, dev, failures)
     emit(rec)
 
+    # ---- eval: the evaluation path on the loop's model, counted -------------
+    torch.cuda.empty_cache()
+    rec, eval_launches = eval_phase(d, dev, failures)
+    emit(rec)
+
     # ---- kernels -----------------------------------------------------------
     size0 = f"{SIZES[0][0]}x{SIZES[0][1]}"
     fwd_main = next(c for c in fwd_cases
@@ -854,7 +1180,8 @@ def main():
     launches_by_path = {k: {"serve": serve_launches[k],
                             "train": train_launches[k],
                             "loop": loop_launches[k],
-                            "loop_resume": resume_launches[k]}
+                            "loop_resume": resume_launches[k],
+                            "eval": eval_launches[k]}
                         for k in blend.LAUNCHES}
     emit({"phase": "kernels", "launches": launches_by_path})
     for k, by_path in launches_by_path.items():
@@ -864,6 +1191,8 @@ def main():
             failures.append(f"{k} was not launched on the loop path")
     if serve_launches["blend_fwd"] == 0:
         failures.append("blend_fwd was not launched on the serving path")
+    if eval_launches["blend_fwd"] == 0:
+        failures.append("blend_fwd was not launched on the evaluation path")
     if color_launches["blend_bwd"] != 1:
         failures.append("the colour-only step did not launch blend_bwd")
 

@@ -13,8 +13,10 @@ image-based warp, the colour-fusion net), the training step
 the hand-written VJPs, per-group Adam, densification statistics) and the
 training driver (`train.loop.train`, `python -m ibgs_tpu_torch.train`: a
 scene from its seed cloud through KNN initialisation, the step schedule,
-densify / prune, opacity reset, evaluation, snapshots and checkpoints),
-with the data layer (`data/`).  The blend forward and backward run
+densify / prune, opacity reset, evaluation, snapshots and checkpoints,
+the live viewer), the data layer (`data/`) and the evaluation of a
+trained model (`python -m ibgs_tpu_torch.render` / `.metrics`: PNG
+splits, FPS, memory, the TSDF mesh, PSNR / SSIM / LPIPS; `eval/video`).  The blend forward and backward run
 through hand-written CUDA kernels
 (`ops/csrc/blend_fwd.cu`, `ops/csrc/blend_bwd.cu`) on CUDA tensors, and
 through their plain PyTorch versions on CPU tensors.

@@ -12,14 +12,17 @@ package's numpy forms.
 * `train_state_from_numpy`: a training state from the parameter fields,
   optional Adam moments, the exposure table and the fusion net, so that
   both packages can start a step from one state.
-* `ring_source_cameras` / `bundle_train_scene`: the bundle's cameras
-  rebuilt exactly, and a training scene (5 views, the seed cloud) from a
-  converged-scene bundle.
+* `ring_source_cameras` / `bundle_train_scene` / `bundle_eval_scene`:
+  the bundle's cameras rebuilt exactly, a training scene (5 views, the
+  seed cloud) from a converged-scene bundle, and that scene with the
+  bundle view as its one test view.
 * `train_state_from_jax_checkpoint`: a JAX package `chkpnt<N>.npz`
   (positional leaves) as a port training state, so a JAX run can be
   resumed by the port.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -241,6 +244,16 @@ def bundle_train_scene(d, width: int, height: int, device="cuda"):
         cameras_extent=_nerfpp_extent(infos),
         nearest_ids=nearest_by_centre(centers),
         test_nearest_ids=[], white_background=False)
+
+
+def bundle_eval_scene(d, width: int, height: int, device="cuda"):
+    """`bundle_train_scene` with one test view: the bundle camera with
+    `gt`, whose nearest ids are the 4 ring sources (train views 1-4)."""
+    scene = bundle_train_scene(d, width, height, device)
+    return dataclasses.replace(
+        scene, test_cameras=scene.train_cameras[:1],
+        test_infos=scene.train_infos[:1], test_images=scene.images[:1],
+        test_nearest_ids=[list(range(1, scene.n_train))])
 
 
 def _flax_net_leaves() -> list:

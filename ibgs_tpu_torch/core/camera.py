@@ -6,6 +6,10 @@ are Python floats that hold float32 values, so that every tensor op that
 reads them sees the same float32 scalar as the JAX package's traced
 float32 scalars.  Principal point at the image centre, znear=0.01 /
 zfar=100, pixel-centre convention pix = ((ndc+1)*S - 1)/2.
+
+The camera paths (`interpolate_cameras`, `perturbed_camera`,
+`ellipse_path`) are numpy float64 on the host, as in the JAX package; the
+cameras they return live on their input cameras' device.
 """
 from __future__ import annotations
 
@@ -107,3 +111,85 @@ def look_at_camera(eye, target, up, fovx: float, fovy: float,
     R = np.stack([right, down, fwd], axis=1)   # columns (right, down, fwd)
     t = -R.T @ eye
     return make_camera(R, t, fovx, fovy, width, height, device)
+
+
+def _fov(cam: Camera):
+    return (2.0 * math.atan(cam.width / (2.0 * float(cam.fx))),
+            2.0 * math.atan(cam.height / (2.0 * float(cam.fy))))
+
+
+def interpolate_cameras(cam_a: Camera, cam_b: Camera, w: float) -> Camera:
+    """Pose interpolation between two cameras: a linear blend of the
+    camera-to-world matrices, w on cam_a."""
+    va = cam_a.view.cpu().numpy().astype(np.float64)
+    vb = cam_b.view.cpu().numpy().astype(np.float64)
+    c2w = w * np.linalg.inv(va) + (1.0 - w) * np.linalg.inv(vb)
+    w2c = np.linalg.inv(c2w)
+    fovx, fovy = _fov(cam_a)
+    return make_camera(w2c[:3, :3].T, w2c[:3, 3], fovx, fovy, cam_a.width,
+                       cam_a.height, cam_a.device)
+
+
+def perturbed_camera(cam: Camera, rng, trans_noise=1.0,
+                     deg_noise=15.0) -> Camera:
+    """A random virtual camera around an existing pose: rotations of up to
+    `deg_noise` degrees about each axis, a shift of up to `trans_noise`;
+    `rng` is a numpy Generator."""
+    c2w = np.linalg.inv(cam.view.cpu().numpy().astype(np.float64))
+    rx, ry, rz = np.deg2rad(rng.uniform(-deg_noise, deg_noise, 3))
+    Rx = np.array([[1, 0, 0], [0, np.cos(rx), -np.sin(rx)],
+                   [0, np.sin(rx), np.cos(rx)]])
+    Ry = np.array([[np.cos(ry), 0, np.sin(ry)], [0, 1, 0],
+                   [-np.sin(ry), 0, np.cos(ry)]])
+    Rz = np.array([[np.cos(rz), -np.sin(rz), 0],
+                   [np.sin(rz), np.cos(rz), 0], [0, 0, 1]])
+    c2w[:3, :3] = c2w[:3, :3] @ (Rz @ Ry @ Rx)
+    c2w[:3, 3] += rng.uniform(-trans_noise, trans_noise, 3)
+    w2c = np.linalg.inv(c2w)
+    fovx, fovy = _fov(cam)
+    return make_camera(w2c[:3, :3].T, w2c[:3, 3], fovx, fovy, cam.width,
+                       cam.height, cam.device)
+
+
+def ellipse_path(cameras, n_frames: int = 240, z_variation: float = 0.0):
+    """A smooth elliptical fly-through fitted to the cameras: the ellipse
+    spans the 90th percentiles of the centres' offsets along their two
+    principal axes and looks at the centres' mean (the full basis is
+    completed when the cameras span fewer than 3 axes)."""
+    centers = np.stack([c.cam_pos.cpu().numpy() for c in cameras])
+    center = centers.mean(0)
+    offsets = centers - center
+    u, s, vt = np.linalg.svd(offsets, full_matrices=False)
+    if vt.shape[0] < 3:
+        vt = np.concatenate([vt, np.zeros((3 - vt.shape[0], 3))], 0)
+        for k in range(3):
+            if np.linalg.norm(vt[2]) < 1e-6:
+                cand = np.zeros(3)
+                cand[k] = 1.0
+                vt[2] = cand - vt[:2].T @ (vt[:2] @ cand)
+        vt[2] /= np.linalg.norm(vt[2]) + 1e-12
+    a1 = vt[0] * np.percentile(np.abs(offsets @ vt[0]), 90)
+    a2 = vt[1] * np.percentile(np.abs(offsets @ vt[1]), 90)
+    up_axis = vt[2]
+    z_amp = z_variation * np.percentile(np.abs(offsets @ vt[2]), 90)
+    look_at = center + vt[2] * 0.0
+    cam0 = cameras[0]
+    fovx, fovy = _fov(cam0)
+    out = []
+    for k in range(n_frames):
+        th = 2 * np.pi * k / n_frames
+        eye = center + np.cos(th) * a1 + np.sin(th) * a2 \
+            + np.sin(2 * th) * z_amp * up_axis
+        fwd = look_at - eye
+        fwd = fwd / (np.linalg.norm(fwd) + 1e-9)
+        right = np.cross(fwd, up_axis)
+        nr = np.linalg.norm(right)
+        if nr < 1e-6:
+            right = np.cross(fwd, up_axis + np.array([0.17, 0.31, 0.45]))
+            nr = np.linalg.norm(right)
+        right /= nr + 1e-9
+        down = np.cross(fwd, right)
+        R = np.stack([right, down, fwd], axis=1)
+        out.append(make_camera(R, -R.T @ eye, fovx, fovy, cam0.width,
+                               cam0.height, cam0.device))
+    return out

@@ -12,8 +12,10 @@
   exposure-aware reordering.
 
 All images of a scene share one resolution: stragglers are resized to the
-most common one.  Cameras are port `Camera`s on the scene's device; the
-images stay numpy float32 (N, H, W, 3) on the host.
+most common one.  PNG files are read by `utils/image_io` (no PIL
+needed); other formats, and a resize, need PIL.  Cameras are port
+`Camera`s on the scene's device; the images stay numpy float32
+(N, H, W, 3) on the host.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 from ibgs_tpu_torch.core import transforms as tf
 from ibgs_tpu_torch.core.camera import Camera, make_camera
 from ibgs_tpu_torch.data import colmap
+from ibgs_tpu_torch.utils import image_io
 
 
 @dataclass
@@ -85,13 +88,25 @@ def _resolve_resolution(width, height, resolution, resolution_scale=1.0):
     return int(width / scale), int(height / scale)
 
 
-def _load_image(path, size, white_background=False):
-    from PIL import Image
+def _pil_image():
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ImportError("PIL is needed to read images other than PNG and "
+                          "to resize images; it does not import") from None
+    return Image
 
-    img = Image.open(path)
-    if img.size != size:
-        img = img.resize(size, Image.LANCZOS)
-    arr = np.asarray(img).astype(np.float32) / 255.0
+
+def _load_image(path, size, white_background=False):
+    if path.lower().endswith(".png") and image_io.png_size(path) == size:
+        arr = image_io.read_png(path)
+    else:
+        Image = _pil_image()
+        img = Image.open(path)
+        if img.size != size:
+            img = img.resize(size, Image.LANCZOS)
+        arr = np.asarray(img)
+    arr = arr.astype(np.float32) / 255.0
     if arr.ndim == 2:
         arr = np.stack([arr] * 3, -1)
     if arr.shape[-1] == 4:
@@ -161,8 +176,6 @@ def _read_colmap_infos(source: str, images_dir: str, eval_split: bool):
 
 def _read_blender_infos(source: str, white_background: bool,
                         eval_split: bool):
-    from PIL import Image
-
     def read(split):
         path = os.path.join(source, f"transforms_{split}.json")
         if not os.path.exists(path):
@@ -178,7 +191,7 @@ def _read_blender_infos(source: str, white_background: bool,
             R = w2c[:3, :3].T
             T = w2c[:3, 3]
             fp = os.path.join(source, fr["file_path"] + ".png")
-            w, h = Image.open(fp).size
+            w, h = image_io.png_size(fp)
             fovy = tf.focal_to_fov(tf.fov_to_focal(fovx, w), h)
             infos.append(CameraInfo(
                 uid=len(infos), R=R, T=T, fovx=fovx, fovy=fovy,

@@ -1,5 +1,5 @@
 """Training CLI of the port (the counterpart of the root train.py, without
-the Gaussian-sharded mesh and the network viewer).
+the Gaussian-sharded mesh).
 
     python -m ibgs_tpu_torch.train -s <scene_dir> -m <model_dir> [-r 2 ...]
     python -m ibgs_tpu_torch.train --synthetic \\
@@ -28,6 +28,8 @@ def build_parser():
                         default=[])
     parser.add_argument("--start_checkpoint", type=str, default=None)
     parser.add_argument("--quiet", action="store_true")
+    parser.add_argument("--port", type=int, default=None,
+                        help="serve the SIBR network viewer on this port")
     parser.add_argument("--synthetic", action="store_true",
                         help="train on the built-in synthetic scene")
     parser.add_argument("--synthetic_spec", nargs=5, type=int,
@@ -79,7 +81,7 @@ def main(argv=None):
           test_iterations=tuple(args.test_iterations),
           checkpoint_iterations=tuple(args.checkpoint_iterations),
           start_checkpoint=args.start_checkpoint, quiet=args.quiet,
-          device=args.device)
+          viewer_port=args.port, device=args.device)
     print("\nTraining complete.")
     return 0
 

@@ -1,11 +1,12 @@
 """The training driver (counterpart of ibgs_tpu/train/loop.py, without the
-Gaussian-sharded mesh and the network viewer).
+Gaussian-sharded mesh).
 
 From a scene's seed cloud to a trained model: KNN-scaled initialisation,
 the step schedule (colour-only steps, then geometry rendering with the
 warp, then colour aggregation), densify / prune with capacity growth,
 opacity reset and decay, the per-view depth cache that feeds the warp,
-evaluation, PLY snapshots, checkpoints and resume.
+evaluation, PLY snapshots, checkpoints and resume, and the live SIBR
+viewer (`viewer_port`: one pending viewer message served per iteration).
 
 The host holds only schedule state (Python ints and numpy): the camera
 order and background come from `np.random.default_rng(seed)` with the JAX
@@ -68,6 +69,7 @@ def train(
     quiet: bool = False,
     seed: int = 24,
     log_every: int = 200,
+    viewer_port: Optional[int] = None,
     device="cuda",
 ):
     """Train `scene` into `model_path`; returns (state, stacks), stacks
@@ -226,6 +228,16 @@ def train(
             state = dataclasses.replace(state, model=model)
             print(f"[it {it}] capacity -> {newcap}{tag}", flush=True)
 
+    if viewer_port is not None:
+        from ibgs_tpu_torch.eval import viewer as _viewer
+        _viewer.init(port=viewer_port)
+
+        def viewer_render(cam, msg):
+            # a plain Gaussian render at the viewer's resolution: sources
+            # off (count 0, so no warp input is read)
+            src = gather_src(np.zeros(rcfg.max_src, np.int64), 0, cam)
+            return eval_render(cam, src)[0]
+
     stack_order = []
     net_lr = 1e-3
     t_start = time.time()
@@ -243,6 +255,8 @@ def train(
                 profiler.close()
                 profiling_now = False
                 print(f"[it {it}] profiler trace written to {profile_dir}")
+        if viewer_port is not None:
+            _viewer.serve_once(viewer_render, device=dev)
         if it == opt.single_view_weight_from_iter:
             # seed the learnt normals from the smallest covariance axis
             m = state.model
@@ -382,4 +396,6 @@ def train(
 
     profiler.close()
     logger.close()
+    if viewer_port is not None:
+        _viewer.shutdown()
     return state, stacks

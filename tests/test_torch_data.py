@@ -14,6 +14,10 @@
   oracle) within 1e-5.
 * The PLY written by the port byte-equal to the JAX package's for the same
   arrays, and read back exactly.
+* `dataset._load_image` reads PNG without PIL: pixel-equal to the PIL
+  route (the JAX package's) on RGB and RGBA files, black and white
+  backgrounds; a resize and a JPEG still go through PIL, and without PIL
+  a JPEG raises ImportError naming it.
 * `convert.bundle_train_scene` on bench_bundle.npz: 5 views at the
   bundle's exact camera centres (the source cameras rebuilt as the ring's
   look-at cameras, within the stored transforms' bf16 rounding), the
@@ -270,3 +274,36 @@ def test_load_blender_scene_matches_jax(white, tmp_path):
     ts = tds.load_scene(root, device="cpu", **kw)
     assert ts.n_train == 3 and len(ts.test_cameras) == 1
     _assert_scenes_equal(ts, js)
+
+
+@pytest.mark.parametrize("white", [False, True])
+@pytest.mark.parametrize("mode", ["RGB", "RGBA"])
+def test_png_loads_without_pil(mode, white, tmp_path, monkeypatch):
+    import builtins
+
+    from PIL import Image
+
+    r = np.random.default_rng(6)
+    arr = r.integers(0, 256, (18, 26, len(mode))).astype(np.uint8)
+    png = str(tmp_path / "a.png")
+    Image.fromarray(arr, mode).save(png)
+    want = jds._load_image(png, (26, 18), white)
+    resized = jds._load_image(png, (13, 9), white)
+    jpg = str(tmp_path / "a.jpg")
+    Image.fromarray(arr[..., :3]).save(jpg)
+    want_jpg = jds._load_image(jpg, (26, 18), white)
+    assert np.array_equal(tds._load_image(jpg, (26, 18), white), want_jpg)
+    assert np.array_equal(tds._load_image(png, (13, 9), white), resized)
+
+    real_import = builtins.__import__
+
+    def no_pil(name, *a, **k):
+        if name == "PIL" or name.startswith("PIL."):
+            raise ImportError(f"no module named {name}")
+        return real_import(name, *a, **k)
+
+    monkeypatch.setattr(builtins, "__import__", no_pil)
+    got = tds._load_image(png, (26, 18), white)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    with pytest.raises(ImportError, match="PIL"):
+        tds._load_image(jpg, (26, 18), white)

@@ -469,3 +469,103 @@ def test_training_loop_on_the_card(tmp_path):
     assert all(math.isfinite(m[k]) for m in log for k in loop.LOSS_KEYS)
     assert all(m["nonfinite_grads"] == 0 for m in log)
     assert state.model.alive.is_cuda and state.model.step == 20
+
+
+def _sphere_views(n_views, W, H, radius, seed):
+    """Ray-cast depth maps of a sphere at the origin from look-at cameras
+    on a ring, with random colour images: [(depth, image, K, view)]."""
+    from ibgs_tpu_torch.core.camera import look_at_camera
+    r = np.random.default_rng(seed)
+    out = []
+    for k in range(n_views):
+        a = 2 * np.pi * k / n_views
+        cam = look_at_camera([1.2 * np.sin(a), 0.3, -3.0 + 0.5 * np.cos(a)],
+                             [0, 0, 0], [0, -1, 0], 0.9, 0.7, W, H, "cpu")
+        view = cam.view.numpy().astype(np.float64)
+        ys, xs = np.mgrid[0:H, 0:W].astype(np.float64)
+        d = np.stack([(xs - cam.cx) / cam.fx, (ys - cam.cy) / cam.fy,
+                      np.ones_like(xs)], -1)
+        c2w = np.linalg.inv(view)
+        o, dw = c2w[:3, 3], d @ c2w[:3, :3].T
+        a2, b, c = (dw ** 2).sum(-1), 2 * (dw @ o), o @ o - radius ** 2
+        disc = b * b - 4 * a2 * c
+        t = (-b - np.sqrt(np.clip(disc, 0, None))) / (2 * a2)
+        K = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1]],
+                     np.float32)
+        out.append((np.where(disc > 0, t, 0).astype(np.float32),
+                    r.random((H, W, 3)).astype(np.float32), K,
+                    view.astype(np.float32)))
+    return out
+
+
+@pytest.mark.gpu
+def test_tsdf_on_the_card_matches_the_cpu(monkeypatch):
+    """3 views of a sphere into a 67 x 67 x 67 grid, in chunks of 50,000
+    voxels on the card and whole on the CPU: the weights equal and tsdf /
+    colour within 1e-5 where the weight is positive, on all but 1e-4 of the
+    voxels (a pixel index flipping at a rounding tie moves a voxel
+    whole)."""
+    dev = _cuda()
+    from ibgs_tpu_torch.eval import tsdf
+    from ibgs_tpu_torch.eval.tsdf import TSDFVolume
+    lo, hi = np.array([-1.0, -1.0, -1.0]), np.array([1.0, 1.0, 1.0])
+    card = TSDFVolume(lo, hi, voxel_size=0.03, device=dev)
+    cpu = TSDFVolume(lo, hi, voxel_size=0.03, device="cpu")
+    for depth, img, K, view in _sphere_views(3, 96, 72, 0.7, 3):
+        cpu.integrate(depth, img, K, view)
+        monkeypatch.setattr(tsdf, "CHUNK_VOXELS", 50_000)
+        card.integrate(torch.as_tensor(depth).to(dev),
+                       torch.as_tensor(img).to(dev), K, view)
+        monkeypatch.undo()
+    pos = cpu.weight > 0
+    off = ((card.tsdf.cpu() - cpu.tsdf).abs() > 1e-5) \
+        | ((card.color.cpu() - cpu.color).abs() > 1e-5).any(-1)
+    off = (off & pos) | (card.weight.cpu() != cpu.weight)
+    assert int(pos.sum()) > 1000
+    assert int(off.sum()) <= 1e-4 * cpu.weight.numel()
+
+
+@pytest.mark.gpu
+def test_render_split_on_the_card(tmp_path):
+    """`render_split` of the synthetic scene's test views on the card, FPS
+    over 1 timed pass: 5 forward launches per view per pass (1 warm-up, 1
+    timed, the PNG pass); the PNGs of renders, depth and normal within 1 of
+    the CPU's on at most 0.1% of pixels (no fusion net: its bf16 matmuls
+    round differently on the two devices)."""
+    dev = _cuda()
+    from ibgs_tpu_torch.config import OptimizationParams
+    from ibgs_tpu_torch.data.synthetic import make_synthetic_scene
+    from ibgs_tpu_torch.eval.render_driver import EvalRenderer, render_split
+    from ibgs_tpu_torch.models.gaussians import init_from_points
+    from ibgs_tpu_torch.ops.rasterize import RasterConfig
+    from ibgs_tpu_torch.utils import image_io
+
+    opt = OptimizationParams(number_src_frames=4)
+    pngs = {}
+    for device in ("cpu", dev):
+        scene = make_synthetic_scene(n_views=12, width=64, height=64,
+                                     device=device)
+        scene.test_nearest_ids = [[0, 1, 2, 3]] * len(scene.test_cameras)
+        model = init_from_points(scene.points, scene.colors, 2,
+                                 device=device)
+        ev = EvalRenderer.from_scene(model, None, scene, opt, RasterConfig(),
+                                     device)
+        before = blend.LAUNCHES["blend_fwd"]
+        out = tmp_path / str(device)
+        fps = render_split(ev, scene.test_cameras, scene.test_images,
+                           scene.test_nearest_ids, str(out),
+                           measure_fps=True, fps_loops=1)
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert blend.LAUNCHES["blend_fwd"] - before \
+                == 3 * 5 * len(scene.test_cameras)
+            assert fps > 0
+        pngs[str(device)] = {
+            p.relative_to(out): image_io.read_png(str(p)).astype(int)
+            for p in out.rglob("*.png")}
+    a, b = pngs["cpu"], pngs[str(dev)]
+    assert sorted(a) == sorted(b) and len(a) == 4 * len(
+        [p for p in a if p.parts[0] == "renders"])
+    for k in a:
+        diff = np.abs(a[k] - b[k])
+        assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3, k
