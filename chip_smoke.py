@@ -50,11 +50,29 @@ Phases, one JSON line each; any failure makes the exit code 1:
              non-empty mesh, SSIM on the card against the CPU, LPIPS null;
              the bundle model's source depths at the ring cameras against
              the bundle's cached ones
-  kernels    each kernel with its launches on the serving, train, loop and
-             eval paths
+  parallel   row bands and the Gaussian-sharded step on the card, NCCL at
+             world size 1: the bundle at 960x544 as 2 bands of 272 rows
+             and at 1920x1088 as 4, each through `rasterize`'s viewport
+             band with the warp, stitched against the full frame; both
+             kernels held to their plain versions on the last 960x544
+             band (row0 272); `gsp_full_train_step` on the train phase's
+             step on its fast path and its generic exchange against the
+             single-chip step (losses, post-Adam parameters, overflow 0,
+             the two paths bit-identical), ms per step of all three; then
+             `python -m ibgs_tpu_torch.train --gsp_shards 1` (in process,
+             the bundle's 5 views as its scene) for an 80-iteration cut
+             with densify events and an opacity reset: the evaluation
+             PSNR rises before the reset and after it, exact launches,
+             densify through gsp_densify_fn, the checkpoint equal to the
+             run's PLY
+  kernels    each kernel with its launches on the serving, train, loop,
+             eval and parallel paths (the parallel count takes only the
+             band renders, the two GSP steps and the CLI run, not the
+             full-frame and single-chip references they are held to)
 
 then the nvidia-smi line and, last, {"ok": true, "device": {...}}.
 """
+import io
 import json
 import math
 import os
@@ -120,6 +138,28 @@ EVAL_VOXEL_DIVISOR = 256           # voxel = largest extent of the bounds / 256
 TSDF_TOL, TSDF_MISMATCH_SHARE = 1e-5, 1e-4
 SSIM_TOL = 1e-5                    # SSIM on the card against the CPU
 VIEWER_TIMEOUT_S = 30
+PAR_BAND_ROWS = 272                # rows of a band (2 at 544, 4 at 1088)
+BAND_RTOL, BAND_ATOL = 1e-5, 1e-6  # stitched bands against the full frame
+# the Gaussian-sharded step against the single-chip step (the JAX
+# package's tests/test_gsp.py bounds): losses relative, parameters within
+# GSP_LR_BOUND·lr of their group with at most GSP_SHARE of entries over
+# 1e-6 (Adam's first step is ±lr whatever the gradient's size)
+GSP_LOSS_RTOL, GSP_LR_BOUND, GSP_SHARE = 2e-5, 2.05, 0.05
+# the CLI's cut of the loop schedule: densify events at 20 and 40, the
+# opacity reset at 40 (after that event's densify), geometry from 36,
+# aggregation from 61, PLY and checkpoint at 80.  The reset sets every
+# opacity to at most 0.01, which 40 Adam steps of 0.025 in the logit do
+# not undo, so the evaluation PSNR (the CLI's own print, at
+# PAR_LOOP_EVALS) is held to rise on each side of it: from 1 to 39 and
+# from 41 to 80
+PAR_LOOP_SCHEDULE = dict(
+    iterations=80, position_lr_max_steps=80, densify_from_iter=10,
+    densification_interval=20, densify_until_iter=45,
+    opacity_reset_interval=40, single_view_weight_from_iter=45,
+    multi_view_weight_from_iter=45, start_color_aggregation_iter=60,
+    color_aggregate_burnin_steps=10)
+PAR_LOOP_EVALS = (1, 39, 41, 80)
+PAR_LOOP_DIR = os.path.join(ROOT, "build", "chip_smoke_parallel")
 
 
 def emit(obj):
@@ -215,6 +255,51 @@ def device_profile(fn, step_ms, top=8):
             "device_launches": sum(e.count for e in events),
             "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
                     for e in events[:top]]}
+
+
+def gate_fwd(k_out, p_out, tag, failures):
+    """The forward kernel's outputs against the plain version's: floats
+    within TOL_ABS + TOL_REL·|plain| and finite, integers on all but
+    INT_MISMATCH_SHARE of the pixels.  Returns (record, max abs error)."""
+    import torch
+    m, max_err = {}, 0.0
+    n_pix = p_out.final_t.numel()
+    for f in FIELDS:
+        a, b = getattr(k_out, f), getattr(p_out, f)
+        if a.dtype == torch.int32:
+            bad = int((a != b).reshape(n_pix, -1).any(-1).sum())
+            m[f + "_mismatch_pixels"] = bad
+            if bad > INT_MISMATCH_SHARE * n_pix:
+                failures.append(f"{tag} {f}: {bad} mismatching pixels")
+        else:
+            err = (a - b).abs()
+            e = float(err.max()) if err.numel() else 0.0
+            m[f + "_max_abs_err"] = e
+            max_err = max(max_err, e)
+            if not bool((err <= TOL_ABS + TOL_REL * b.abs()).all()) \
+                    or not bool(torch.isfinite(a).all()):
+                failures.append(f"{tag} {f}: max abs err {e}")
+    return m, max_err
+
+
+def gate_bwd(k1, k2, p, tag, failures):
+    """Two backward kernel runs against the plain version: each column
+    within BWD_TOL_REL x its largest plain value + BWD_TOL_ABS, finite,
+    the runs bit-identical.  Returns (record, max abs error)."""
+    import torch
+    err = (k1 - p).abs().amax(0)[:15]
+    scale = p.abs().amax(0)[:15]
+    ok = bool((err <= BWD_TOL_REL * scale + BWD_TOL_ABS).all())
+    finite = bool(torch.isfinite(k1).all())
+    same = torch.equal(k1, k2)
+    if not (ok and finite and same):
+        failures.append(f"{tag}: within tolerance {ok}, finite {finite}, "
+                        f"bit-identical {same}")
+    return {"max_abs_err": dict(zip(GRAD_COLUMNS, err.tolist())),
+            "max_abs_plain": dict(zip(GRAD_COLUMNS, scale.tolist())),
+            "nonzero_rows": int((k1.abs().sum(1) > 0).sum()),
+            "rows": int(k1.shape[0]), "finite": finite,
+            "bit_identical_repeat": same}, float(err.max())
 
 
 def median_range(xs):
@@ -732,6 +817,336 @@ def eval_phase(d, dev, failures):
     return rec, launches
 
 
+def parallel_phase(d, dev, scenes, inputs, opt, rcfg, failures):
+    """Row bands, the Gaussian-sharded step and the mesh loop, counted:
+    returns (the phase's record, the launches of the phase).  `inputs`
+    maps each size to the train phase's (state, sources)."""
+    import copy
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+    from ibgs_tpu_torch import convert
+    from ibgs_tpu_torch.data import dataset
+    from ibgs_tpu_torch.models.gaussians import PARAM_FIELDS, lr_tree
+    from ibgs_tpu_torch.ops import blend
+    from ibgs_tpu_torch.ops.rasterize import prepare, rasterize
+    from ibgs_tpu_torch.parallel import distributed, gsp, sharding
+    from ibgs_tpu_torch.train import __main__ as train_cli
+    from ibgs_tpu_torch.train import checkpoint, trainer
+
+    rec = {"phase": "parallel"}
+    # the launches of the parallel path: counted around the band renders,
+    # the GSP steps and the CLI run only, never around the full-frame and
+    # single-chip references
+    launches = {k: 0 for k in blend.LAUNCHES}
+
+    def since(before):
+        return {k: blend.LAUNCHES[k] - before[k] for k in before}
+
+    def count(before):
+        for k, v in since(before).items():
+            launches[k] += v
+
+    # ---- bands: stitched against the full frame ---------------------------
+    def render(model, cam, src, row0=None, rows=None):
+        nw, off = model.oriented_normal(cam.cam_pos, learnt=opt.learnt_normal)
+        return rasterize(
+            xyz=model.params.xyz, scale=model.scale, quat=model.quat_unit,
+            opacity=model.opacity, sh_coeffs=model.sh_coeffs,
+            active_sh_degree=model.active_sh_degree, normal_world=nw,
+            plane_offset=off, cam=cam, bg=torch.zeros(3, device=dev),
+            cfg=rcfg, src=src, alive=model.alive, render_geo=True,
+            viewport_row0=row0, viewport_rows=rows)
+
+    rec["bands"] = {}
+    band_before = dict(blend.LAUNCHES)
+    for wh in SIZES:
+        sc, src = scenes[wh], inputs[wh][1]
+        n_bands = wh[1] // PAR_BAND_ROWS
+        with torch.no_grad():
+            full = render(sc["model"], sc["cam"], src)
+            torch.cuda.synchronize()
+            before = dict(blend.LAUNCHES)
+            bands = [render(sc["model"], sc["cam"], src, b * PAR_BAND_ROWS,
+                            PAR_BAND_ROWS) for b in range(n_bands)]
+            torch.cuda.synchronize()
+            count(before)
+        r = {"bands": n_bands, "rows": PAR_BAND_ROWS,
+             "band_instances": [b.n_instances for b in bands],
+             "full_instances": full.n_instances}
+        for f in ("render", "final_t", "median_depth", "n_contrib"):
+            a = torch.cat([getattr(b, f) for b in bands])
+            ref = getattr(full, f)
+            if f == "n_contrib":
+                bad = int((a != ref).sum())
+                r["n_contrib_mismatch"] = bad
+                ok = bad == 0
+            else:
+                err = (a - ref).abs()
+                r[f + "_max_abs_err"] = float(err.max())
+                ok = bool((err <= BAND_ATOL + BAND_RTOL * ref.abs()).all()
+                          and torch.isfinite(a).all())
+            if not ok:
+                failures.append(f"parallel: stitched {f} at {wh} differs "
+                                f"from the full frame")
+        rec["bands"][f"{wh[0]}x{wh[1]}"] = r
+
+    # the last 960x544 band with a backward: its blend arguments (row0 272)
+    wh = SIZES[0]
+    sc, src = scenes[wh], inputs[wh][1]
+    row0 = wh[1] - PAR_BAND_ROWS
+    model = sc["model"]
+    leaves = dataclasses.replace(model, params=type(model.params)(**{
+        k: getattr(model.params, k).detach().requires_grad_(True)
+        for k in PARAM_FIELDS}))
+    recorded, kernel = [], blend.blend_bwd_cuda
+
+    def recorder(*a):
+        recorded.append(a)
+        return kernel(*a)
+    blend.blend_bwd_cuda = recorder
+    before = dict(blend.LAUNCHES)
+    try:
+        res = render(leaves, sc["cam"], src, row0, PAR_BAND_ROWS)
+        loss = res.render.sum() + (res.median_depth ** 2).mean()
+        torch.autograd.grad(loss, [leaves.params.xyz, leaves.params.sh_dc])
+    finally:
+        blend.blend_bwd_cuda = kernel
+    torch.cuda.synchronize()
+    count(before)
+    # the band renders alone: the full frames are counted out
+    rec["bands_launches"] = {k: launches[k] for k in launches}
+    want = {"blend_fwd": sum(w[1] // PAR_BAND_ROWS for w in SIZES) + 1,
+            "blend_bwd": 1}
+    full_frames = {k: v - launches[k] for k, v in since(band_before).items()}
+    if full_frames != {"blend_fwd": len(SIZES), "blend_bwd": 0}:
+        failures.append(f"parallel: full-frame reference launches "
+                        f"{full_frames}")
+    if rec["bands_launches"] != want:
+        failures.append(f"parallel: band launches {rec['bands_launches']}, "
+                        f"expected {want}")
+
+    # ---- GSP at world size 1 (NCCL on the card) ----------------------------
+    gsp_launches = {k: 0 for k in launches}
+    mesh = distributed.global_mesh(1, 1, ("dp", "gs"), dev)
+    state0, src0 = inputs[wh]
+    cam, gt = sc["cam"], sc["gt"]
+    phase = trainer.StepPhase(render_geo=True, use_aggregation=True)
+    args = (ITER_GEO, torch.zeros(3, device=dev), False, 1.0, NET_LR)
+
+    def single_path():
+        st = copy.deepcopy(state0)
+        step = trainer.make_train_step(opt, rcfg, st.net, phase)
+        return st, lambda s: step(s, cam, 0, gt, src0, *args)
+
+    def gsp_path(cap_local, cap_e):
+        st = copy.deepcopy(state0)
+        st = dataclasses.replace(st, model=gsp.shard_model(st.model, mesh))
+        step = gsp.gsp_full_train_step(opt, rcfg, st.net, phase, mesh,
+                                       wh[0], wh[1], cap_local, cap_e)
+        ca, srcs = sharding._cam_stack([cam]), sharding.stack_sources([src0])
+        return st, lambda s: step(s, ca, [0], gt[None], srcs, *args)
+
+    first, times = {}, {}
+    n_inst = None
+    for name in ("single", "fast", "generic"):
+        if name == "single":
+            st, fn = single_path()
+        elif name == "fast":           # exact caps: the identity exchange
+            st, fn = gsp_path(0, 0)
+        else:                          # exchange_cap < cap_local, no drop
+            st, fn = gsp_path(2 * n_inst, n_inst)
+        holder = {}
+        torch.cuda.synchronize()
+        before = dict(blend.LAUNCHES)
+        st, aux = fn(st)
+        torch.cuda.synchronize()
+        first[name] = (st, aux)
+        n_inst = n_inst or aux["n_instances"]
+        holder["s"] = st
+
+        def again():
+            holder["s"], _ = fn(holder["s"])
+        times[name] = median_range([host_ms(again)
+                                    for _ in range(STEP_REPEATS)])
+        torch.cuda.synchronize()
+        if name != "single":              # the reference is counted out
+            for k, v in since(before).items():
+                gsp_launches[k] += v
+            count(before)
+    del holder
+    rec["gsp"] = {"size": f"{wh[0]}x{wh[1]}", "iteration": ITER_GEO,
+                  "n_instances": n_inst, "ms_per_step": times,
+                  "exchange_overhead_ms": {
+                      k: times[k]["median"] - times["single"]["median"]
+                      for k in ("fast", "generic")}}
+    one_s, one = first["single"]
+    lrs = lr_tree(trainer.make_lr_config(opt), ITER_GEO,
+                  one_s.spatial_lr_scale)
+    for name in ("fast", "generic"):
+        st, aux = first[name]
+        r = {"n_overflow": int(aux["n_overflow"]),
+             "nonfinite_grads": int(aux["nonfinite_grads"]), "loss": {},
+             "param_max_diff_over_lr": {}}
+        for k in TRAIN_AUX:
+            a, b = float(one[k]), float(aux[k])
+            r["loss"][k] = [a, b]
+            if not abs(a - b) <= GSP_LOSS_RTOL * max(abs(a), 1.0):
+                failures.append(f"parallel: gsp {name} {k} {b} against the "
+                                f"single-chip step's {a}")
+        for f in PARAM_FIELDS:
+            a = getattr(one_s.model.params, f)
+            b = getattr(st.model.params, f)
+            if a.numel() == 0:
+                continue
+            diff = (a - b).abs()
+            lr = getattr(lrs, f)
+            r["param_max_diff_over_lr"][f] = float(diff.max()) / lr
+            if (float(diff.max()) > GSP_LR_BOUND * lr
+                    or float((diff > 1e-6).float().mean()) >= GSP_SHARE):
+                failures.append(f"parallel: gsp {name} {f} off the "
+                                f"single-chip step by {float(diff.max())}")
+        if r["n_overflow"] or r["nonfinite_grads"]:
+            failures.append(f"parallel: gsp {name} {r}")
+        rec["gsp"][name] = r
+    fast, gen = first["fast"][0].model, first["generic"][0].model
+    same = all(torch.equal(getattr(getattr(fast, t), f),
+                           getattr(getattr(gen, t), f))
+               for t in ("params", "mu", "nu") for f in PARAM_FIELDS)
+    rec["gsp"]["fast_generic_bit_identical"] = same
+    if not same:
+        failures.append("parallel: the fast and generic exchange paths "
+                        "differ (first moments = 0.1 x gradient)")
+    rec["gsp_launches"] = gsp_launches
+    want = {"blend_fwd": 2 * (1 + STEP_REPEATS),
+            "blend_bwd": 2 * (1 + STEP_REPEATS)}
+    if rec["gsp_launches"] != want:
+        failures.append(f"parallel: gsp launches {rec['gsp_launches']}, "
+                        f"expected {want}")
+    del first, one_s, one, fast, gen, mesh
+
+    # ---- the loop through the CLI on a 1 x 1 mesh ---------------------------
+    before = dict(blend.LAUNCHES)
+    out = PAR_LOOP_DIR
+    shutil.rmtree(out, ignore_errors=True)
+    iters = PAR_LOOP_SCHEDULE["iterations"]
+    argv = ["-s", "bench_bundle.npz", "-m", out, "--gsp_shards", "1",
+            "--device", str(dev), "--quiet", "--test_iterations",
+            *map(str, PAR_LOOP_EVALS), "--save_iterations", str(iters),
+            "--checkpoint_iterations", str(iters)]
+    for k, v in PAR_LOOP_SCHEDULE.items():
+        argv += [f"--{k}", str(v)]
+    # the bundle's 5 views stand for a scene directory
+    load_scene = dataset.load_scene
+    dataset.load_scene = lambda *a, **k: convert.bundle_train_scene(
+        d, wh[0], wh[1], dev)
+    t0 = time.perf_counter()
+    try:
+        printed = io.StringIO()
+        stdout, sys.stdout = sys.stdout, printed
+        try:
+            code = train_cli.main(argv)
+        finally:
+            sys.stdout = stdout
+    finally:
+        dataset.load_scene = load_scene
+    torch.cuda.synchronize()
+    loop_launches = since(before)
+    count(before)
+    log = read_jsonl(os.path.join(out, "train_log.jsonl"))
+    events = read_jsonl(os.path.join(out, "densify_log.jsonl"))
+    # the evaluation's mean train-view PSNR, as the CLI prints it
+    psnr = {int(it): float(v) for it, v in re.findall(
+        r"\[ITER (\d+)\] Evaluating train: PSNR (\S+)",
+        printed.getvalue())}
+    rec["loop"] = {"s": time.perf_counter() - t0, "exit_code": code,
+                   "schedule": PAR_LOOP_SCHEDULE, "launches": loop_launches,
+                   "densify": events, "eval_psnr": psnr}
+    want = {"blend_fwd": iters + LOOP_EVAL_VIEWS * len(PAR_LOOP_EVALS),
+            "blend_bwd": iters}
+    if code != 0 or [m["iter"] for m in log] != [1]:
+        failures.append(f"parallel: the CLI run exited {code} with "
+                        f"{len(log)} logged iterations")
+    p1, p2, p3, p4 = (psnr.get(it, math.nan) for it in PAR_LOOP_EVALS)
+    if not all(math.isfinite(m["image_loss"]) and not m["nonfinite_grads"]
+               for m in log) or not (p2 > p1 and p4 > p3):
+        failures.append(f"parallel: CLI evaluation PSNR {psnr}")
+    if loop_launches != want:
+        failures.append(f"parallel: CLI launches {loop_launches}, expected "
+                        f"{want}")
+    if not events or not all(e.get("gsp_shards") == 1 for e in events):
+        failures.append(f"parallel: densify did not run through "
+                        f"gsp_densify_fn: {events}")
+
+    # the checkpoint holds the run's final model: its alive rows are the
+    # PLY's rows bit for bit, and a save of the loaded state writes the
+    # same arrays
+    from ibgs_tpu_torch.data import ply
+    ck = os.path.join(out, f"chkpnt{iters}.npz")
+    template = trainer.TrainState(
+        model=inputs[wh][0].model, app_ab=inputs[wh][0].app_ab,
+        app_opt=inputs[wh][0].app_opt, net=copy.deepcopy(inputs[wh][0].net),
+        net_opt=None, spatial_lr_scale=1.0)
+    loaded, ck_it = checkpoint.load_state(template, ck)
+    raw = dict(np.load(ck))
+    again = checkpoint.state_arrays(loaded)
+    same = ck_it == iters and all(
+        again[k].tobytes() == raw[k].tobytes() for k in again)
+    alive = raw["alive"]
+    pl = ply.load_gaussian_ply(os.path.join(
+        out, "point_cloud", f"iteration_{iters}", "point_cloud.ply"))
+    same = same and np.array_equal(pl["xyz"], raw["params.xyz"][alive])
+    same = same and all(np.isfinite(v).all() for k, v in raw.items()
+                        if v.dtype.kind == "f")
+    rec["loop"]["checkpoint_bit_exact"] = same
+    if not same:
+        failures.append("parallel: the CLI's checkpoint does not reload "
+                        "bit-exact to its PLY, or holds a non-finite value")
+    del loaded, template
+
+    # ---- both kernels against their plain versions on the last band ------
+    pr = prepare(xyz=model.params.xyz, scale=model.scale,
+                 quat=model.quat_unit, opacity=model.opacity,
+                 sh_coeffs=model.sh_coeffs,
+                 active_sh_degree=model.active_sh_degree,
+                 **dict(zip(("normal_world", "plane_offset"),
+                            model.oriented_normal(sc["cam"].cam_pos,
+                                                  learnt=opt.learnt_normal))),
+                 cam=sc["cam"], cfg=rcfg, alive=model.alive,
+                 viewport_row0=row0, viewport_rows=PAR_BAND_ROWS)
+    cam = sc["cam"]
+    kc = {"row0": row0, "band_instances": pr.bins.n_instances, "fwd": {},
+          "bwd": {}}
+    fwd_err = bwd_err = 0.0
+    for mode in (0, 1, 2):
+        cfg = rcfg.blend_cfg(render_geo=mode == 1, depth_only=mode == 2)
+        a = (pr.feats_inst, pr.bins.tile_start, pr.bins.tile_stop, pr.Wp,
+             pr.Hp, cam.fx, cam.fy, cam.cx, cam.cy, cfg, row0)
+        k_out, p_out = blend.blend_fwd_cuda(*a), blend.blend_plain(*a)
+        torch.cuda.synchronize()
+        kc["fwd"][MODE_NAMES[mode]], e = gate_fwd(
+            k_out, p_out, f"parallel: band blend_fwd {MODE_NAMES[mode]}",
+            failures)
+        fwd_err = max(fwd_err, e)
+    *head, saved, cts, r0 = recorded[0]
+    saved = type(saved)(*(getattr(saved, f).detach() for f in FIELDS))
+    cts = tuple(c.detach() for c in cts)
+    head[0] = head[0].detach()
+    k1 = blend.blend_bwd_cuda(*head, saved, cts, r0)
+    k2 = blend.blend_bwd_cuda(*head, saved, cts, r0)
+    p = blend.blend_bwd_plain(*head, saved, cts, r0)
+    torch.cuda.synchronize()
+    kc["bwd"]["render_geo"], bwd_err = gate_bwd(
+        k1, k2, p, "parallel: band blend_bwd render_geo", failures)
+    if r0 != row0:
+        failures.append(f"parallel: the band's backward ran at row0 {r0}")
+    kc["max_abs_err"] = {"blend_fwd": fwd_err, "blend_bwd": bwd_err}
+    rec["band_kernels"] = kc
+    return rec, launches
+
+
 def main():
     import numpy as np
     import torch
@@ -832,25 +1247,9 @@ def main():
         k_out = blend.blend_fwd_cuda(*args)
         p_out = blend.blend_plain(*args)
         torch.cuda.synchronize()
-        m = {}
-        n_pix = pr.Wp * pr.Hp
-        for f in FIELDS:
-            a, b = getattr(k_out, f), getattr(p_out, f)
-            if a.dtype == torch.int32:
-                bad = int((a != b).reshape(n_pix, -1).any(-1).sum())
-                m[f + "_mismatch_pixels"] = bad
-                if bad > INT_MISMATCH_SHARE * n_pix:
-                    failures.append(f"blend_fwd {MODE_NAMES[mode]} {f}: "
-                                    f"{bad} mismatching pixels")
-            else:
-                err = (a - b).abs()
-                e = float(err.max()) if err.numel() else 0.0
-                m[f + "_max_abs_err"] = e
-                fwd_max_abs_err = max(fwd_max_abs_err, e)
-                if not bool((err <= TOL_ABS + TOL_REL * b.abs()).all()) \
-                        or not bool(torch.isfinite(a).all()):
-                    failures.append(f"blend_fwd {MODE_NAMES[mode]} {f}: "
-                                    f"max abs err {e}")
+        m, e = gate_fwd(k_out, p_out, f"blend_fwd {MODE_NAMES[mode]}",
+                        failures)
+        fwd_max_abs_err = max(fwd_max_abs_err, e)
         pairs[(wh, mode)] = int(p_out.n_contrib.long().sum())
         rec["modes"][MODE_NAMES[mode]] = m
     emit(rec)
@@ -937,22 +1336,10 @@ def main():
             torch.cuda.synchronize()
             if name == "real":
                 contrib_pairs[(wh, mode)] = stats["contrib_pairs"]
-            err = (k1 - p).abs().amax(0)[:15]
-            scale = p.abs().amax(0)[:15]
-            ok = bool((err <= BWD_TOL_REL * scale + BWD_TOL_ABS).all())
-            finite = bool(torch.isfinite(k1).all())
-            same = torch.equal(k1, k2)
-            bwd_max_abs_err = max(bwd_max_abs_err, float(err.max()))
-            m[name] = {
-                "max_abs_err": dict(zip(GRAD_COLUMNS, err.tolist())),
-                "max_abs_plain": dict(zip(GRAD_COLUMNS, scale.tolist())),
-                "nonzero_rows": int((k1.abs().sum(1) > 0).sum()),
-                "rows": int(k1.shape[0]), "finite": finite,
-                "bit_identical_repeat": same}
-            if not (ok and finite and same):
-                failures.append(f"blend_bwd {MODE_NAMES[mode]} {name}: "
-                                f"within tolerance {ok}, finite {finite}, "
-                                f"bit-identical {same}")
+            m[name], e = gate_bwd(k1, k2, p,
+                                  f"blend_bwd {MODE_NAMES[mode]} {name}",
+                                  failures)
+            bwd_max_abs_err = max(bwd_max_abs_err, e)
         rec["modes"][MODE_NAMES[mode]] = m
     emit(rec)
 
@@ -1171,6 +1558,14 @@ def main():
     rec, eval_launches = eval_phase(d, dev, failures)
     emit(rec)
 
+    # ---- parallel: bands, the Gaussian-sharded step, the mesh loop ----------
+    torch.cuda.empty_cache()
+    par_in = {wh: train_inputs(wh) for wh in SIZES}
+    rec, par_launches = parallel_phase(d, dev, scenes, par_in, opt, rcfg,
+                                       failures)
+    emit(rec)
+    del par_in
+
     # ---- kernels -----------------------------------------------------------
     size0 = f"{SIZES[0][0]}x{SIZES[0][1]}"
     fwd_main = next(c for c in fwd_cases
@@ -1181,7 +1576,8 @@ def main():
                             "train": train_launches[k],
                             "loop": loop_launches[k],
                             "loop_resume": resume_launches[k],
-                            "eval": eval_launches[k]}
+                            "eval": eval_launches[k],
+                            "parallel": par_launches[k]}
                         for k in blend.LAUNCHES}
     emit({"phase": "kernels", "launches": launches_by_path})
     for k, by_path in launches_by_path.items():
@@ -1189,6 +1585,8 @@ def main():
             failures.append(f"{k} was not launched on the training path")
         if by_path["loop"] == 0:
             failures.append(f"{k} was not launched on the loop path")
+        if by_path["parallel"] == 0:
+            failures.append(f"{k} was not launched on the parallel path")
     if serve_launches["blend_fwd"] == 0:
         failures.append("blend_fwd was not launched on the serving path")
     if eval_launches["blend_fwd"] == 0:

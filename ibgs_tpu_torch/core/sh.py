@@ -24,6 +24,11 @@ def rgb_to_sh0(rgb: torch.Tensor) -> torch.Tensor:
     return (rgb - 0.5) / C0
 
 
+def sh0_to_rgb(sh: torch.Tensor) -> torch.Tensor:
+    """The colour a DC coefficient shades to."""
+    return sh * C0 + 0.5
+
+
 def sh_basis(dirs: torch.Tensor, degree: int) -> torch.Tensor:
     """(…, 3) unit directions → (…, (degree+1)^2) SH basis values."""
     x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]

@@ -35,6 +35,29 @@ def normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-24) -> torch.Tenso
     return v * torch.rsqrt((v * v).sum(dim=dim, keepdim=True) + eps)
 
 
+def build_covariance_3d(scale: torch.Tensor,
+                        quat: torch.Tensor) -> torch.Tensor:
+    """(…, 3) activated scales + (…, 4) unit quats → (…, 3, 3) world
+    covariance R S S^T R^T, S = diag(scale)."""
+    M = quat_to_rotmat(quat) * scale[..., None, :]   # R @ diag(s)
+    return M @ M.transpose(-1, -2)
+
+
+def cov3d_to_sym6(cov: torch.Tensor) -> torch.Tensor:
+    """(…, 3, 3) symmetric → packed (…, 6): xx, xy, xz, yy, yz, zz."""
+    return torch.stack([cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
+                        cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]],
+                       dim=-1)
+
+
+def sym6_to_cov3d(s: torch.Tensor) -> torch.Tensor:
+    """Packed (…, 6) → symmetric (…, 3, 3)."""
+    return torch.stack([
+        torch.stack([s[..., 0], s[..., 1], s[..., 2]], dim=-1),
+        torch.stack([s[..., 1], s[..., 3], s[..., 4]], dim=-1),
+        torch.stack([s[..., 2], s[..., 4], s[..., 5]], dim=-1)], dim=-2)
+
+
 # --------------------------------------------------------------------------
 # Camera matrices (host-side numpy: built once per camera)
 # --------------------------------------------------------------------------
@@ -78,6 +101,11 @@ def apply_transform(M: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return p @ M[:3, :3].T + M[:3, 3]
 
 
+def apply_rotation(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate direction vectors by the 3x3 block of a 4x4 transform."""
+    return v @ M[:3, :3].T
+
+
 def project_hom(M: torch.Tensor, p: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
     """Full projective transform with homogeneous divide → (…,3) NDC."""
     xyzw = p @ M[:, :3].T + M[:, 3]
@@ -88,3 +116,8 @@ def project_hom(M: torch.Tensor, p: torch.Tensor, eps: float = 1e-7) -> torch.Te
 def ndc_to_pixel(v: torch.Tensor, size) -> torch.Tensor:
     """NDC in [-1,1] → pixel coordinate, 3DGS convention ((v+1)*S - 1)/2."""
     return ((v + 1.0) * size - 1.0) * 0.5
+
+
+def camera_center_from_view(view: torch.Tensor) -> torch.Tensor:
+    """World-space camera centre from a 4x4 world-to-view matrix."""
+    return -(view[:3, :3].T @ view[:3, 3])

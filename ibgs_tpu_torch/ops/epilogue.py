@@ -209,7 +209,11 @@ def median_depth_only(blend: BlendOutputs) -> torch.Tensor:
 
 
 def ibr_epilogue(blend: BlendOutputs, cam: Camera, src: SourceViews,
-                 depth_error_threshold: float = 0.01) -> IBROutputs:
+                 depth_error_threshold: float = 0.01,
+                 row0: int = 0) -> IBROutputs:
+    """The epilogue of a blend over image rows [row0, row0 + H): the rays
+    and the warp use those rows' pixel centres; the sources are full
+    frames."""
     H, W = blend.final_t.shape
     S, Hs, Ws = src.images.shape[0], src.images.shape[1], src.images.shape[2]
     dev = blend.final_t.device
@@ -220,7 +224,7 @@ def ibr_epilogue(blend: BlendOutputs, cam: Camera, src: SourceViews,
     src_pos = src.cam_pos.detach()
 
     xs = torch.arange(W, dtype=torch.float32, device=dev)
-    ys = torch.arange(H, dtype=torch.float32, device=dev)
+    ys = torch.arange(H, dtype=torch.float32, device=dev) + float(row0)
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     pdx = (gx - cam.cx) / device_scalar(cam.fx, dev)
     pdy = (gy - cam.cy) / device_scalar(cam.fy, dev)

@@ -9,9 +9,9 @@ blend, `pack_rows` and the warp carry hand-written VJPs, everything else
 is torch autograd.  As in the JAX package, zero-valued `screen_dummy` /
 `screen_dummy_abs` inputs (P, 2) expose the per-Gaussian screen-space
 gradient and its per-pixel absolute-value sum (the densification
-statistics).  The viewport-band arguments of the JAX package's
-`rasterize` (row-band sharding) belong to the parallel slice; the blend
-still takes `row0`.
+statistics).  With `viewport_row0` / `viewport_rows` only the band of
+rows [row0, row0 + rows) is rasterized, on a band-local tile grid: the
+unit of the row-band sharding in parallel/.
 """
 from __future__ import annotations
 
@@ -40,6 +40,10 @@ class RasterConfig:
     buffer_len: int = 4
     max_src: int = 5
     depth_error_threshold: float = 0.01
+    # exact per-instance tile / ellipse cull in binning: retags instances
+    # whose whole tile lies past the blend's alpha >= 1/255 gate (output-
+    # and gradient-preserving; under GSP it also shrinks the exchange)
+    exact_tile_cull: bool = False
     # staircase-interval expansion (output-preserving, fewer instances)
     staircase_cull: bool = False
     row_cap: int = 0
@@ -81,6 +85,38 @@ class Prepared:
     feats_inst: torch.Tensor   # (n, 15) per-instance table, columns FX..FAY
     Wp: int                    # padded, tile-aligned image size
     Hp: int
+    row0: int = 0              # first image row of the band
+
+
+def _band(sp: preprocess.Splats2D, row0: int, tiles_y: int, tile_h: int
+          ) -> preprocess.Splats2D:
+    """The splats' tile rects on the band-local grid that starts at image
+    row `row0` (a multiple of tile_h).  Splats that preprocess culled stay
+    culled: their rects are not meaningful, so n_tiles is gated by the
+    original count."""
+    ty0 = row0 // tile_h
+    rmin_y = torch.clamp(sp.rect_min[:, 1] - ty0, 0, tiles_y)
+    rmax_y = torch.clamp(sp.rect_max[:, 1] - ty0, 0, tiles_y)
+    n_tiles = torch.where(
+        sp.n_tiles > 0,
+        (sp.rect_max[:, 0] - sp.rect_min[:, 0]) * (rmax_y - rmin_y), 0
+    ).to(sp.n_tiles.dtype)
+    return dataclasses.replace(
+        sp, rect_min=torch.stack([sp.rect_min[:, 0], rmin_y], 1),
+        rect_max=torch.stack([sp.rect_max[:, 0], rmax_y], 1),
+        n_tiles=n_tiles,
+        radius=torch.where(n_tiles > 0, sp.radius, 0).to(sp.radius.dtype))
+
+
+def cull_table(sp: preprocess.Splats2D, row0: float = 0.0) -> torch.Tensor:
+    """(P, 6) exact-cull table of `bin_splats`: mean (y in the coordinates
+    of a grid starting at image row `row0`), conic and the ln(255·opacity)
+    power threshold of the blend's alpha >= 1/255 gate.  Binning's outputs
+    are integers, so no gradient flows here."""
+    m2c, con = sp.mean2d.detach(), sp.conic.detach()
+    thr = torch.log(torch.clamp(255.0 * sp.opacity.detach(), min=1.000001))
+    return torch.stack([m2c[:, 0], m2c[:, 1] - float(row0), con[:, 0],
+                        con[:, 1], con[:, 2], thr], dim=1)
 
 
 def prepare(*, xyz, scale, quat, opacity, sh_coeffs, active_sh_degree,
@@ -88,10 +124,13 @@ def prepare(*, xyz, scale, quat, opacity, sh_coeffs, active_sh_degree,
             alive: Optional[torch.Tensor] = None,
             rgb_override: Optional[torch.Tensor] = None,
             screen_dummy: Optional[torch.Tensor] = None,
-            screen_dummy_abs: Optional[torch.Tensor] = None) -> Prepared:
-    """Preprocess, bin and pack one view's instances.  `screen_dummy` is
-    added to the screen means; `screen_dummy_abs` becomes columns FAX/FAY
-    (zeros when absent)."""
+            screen_dummy_abs: Optional[torch.Tensor] = None,
+            viewport_row0: Optional[int] = None,
+            viewport_rows: Optional[int] = None) -> Prepared:
+    """Preprocess, bin and pack one view's instances, on the tile grid of
+    the band [viewport_row0, viewport_row0 + viewport_rows) when given.
+    `screen_dummy` is added to the screen means; `screen_dummy_abs`
+    becomes columns FAX/FAY (zeros when absent)."""
     P = xyz.shape[0]
     for name, arr, trail in (("xyz", xyz, (3,)), ("scale", scale, (3,)),
                              ("quat", quat, (4,)), ("opacity", opacity, ()),
@@ -108,7 +147,12 @@ def prepare(*, xyz, scale, quat, opacity, sh_coeffs, active_sh_degree,
         raise ValueError(
             "rasterize: provide exactly one of sh_coeffs or rgb_override")
 
-    Hp = _padded(cam.height, cfg.tile_h)
+    band = viewport_rows is not None
+    row0 = int(viewport_row0 or 0) if band else 0
+    if band and (row0 % cfg.tile_h or row0 < 0):
+        raise ValueError(f"rasterize: viewport_row0 {row0} is not a "
+                         f"non-negative multiple of tile_h {cfg.tile_h}")
+    Hp = _padded(viewport_rows if band else cam.height, cfg.tile_h)
     Wp = _padded(cam.width, cfg.tile_w)
     tiles_x = Wp // cfg.tile_w
     tiles_y = Hp // cfg.tile_h
@@ -117,17 +161,11 @@ def prepare(*, xyz, scale, quat, opacity, sh_coeffs, active_sh_degree,
         xyz, scale, quat, opacity, sh_coeffs, active_sh_degree,
         normal_world, plane_offset, cam, cfg.tile_h, cfg.tile_w,
         alive=alive, rgb_override=rgb_override)
+    if band:
+        sp = _band(sp, row0, tiles_y, cfg.tile_h)
     cull_tab = None
-    if cfg.staircase_cull:
-        # mean + conic + the ln(255*opacity) power threshold of the blend's
-        # alpha >= 1/255 gate; binning's outputs are integers, so no
-        # gradient flows here
-        m2c, con = sp.mean2d.detach(), sp.conic.detach()
-        thr = torch.log(torch.clamp(255.0 * sp.opacity.detach(),
-                                    min=1.000001))
-        cull_tab = torch.stack(
-            [m2c[:, 0], m2c[:, 1], con[:, 0], con[:, 1], con[:, 2], thr],
-            dim=1)
+    if cfg.exact_tile_cull or cfg.staircase_cull:
+        cull_tab = cull_table(sp, row0)
     bins = binning.bin_splats(sp, tiles_x, tiles_y, cfg.instance_cap,
                               cull_tab=cull_tab, tile_h=cfg.tile_h,
                               tile_w=cfg.tile_w,
@@ -143,7 +181,8 @@ def prepare(*, xyz, scale, quat, opacity, sh_coeffs, active_sh_degree,
                          sp.plane_normal, sp.plane_dist[:, None],
                          screen_dummy_abs], dim=1)
     return Prepared(sp=sp, bins=bins,
-                    feats_inst=binning.pack_rows(feats_g, bins), Wp=Wp, Hp=Hp)
+                    feats_inst=binning.pack_rows(feats_g, bins), Wp=Wp, Hp=Hp,
+                    row0=row0)
 
 
 def rasterize(*, xyz, scale, quat, opacity, sh_coeffs, active_sh_degree,
@@ -153,19 +192,24 @@ def rasterize(*, xyz, scale, quat, opacity, sh_coeffs, active_sh_degree,
               depth_only: bool = False,
               rgb_override: Optional[torch.Tensor] = None,
               screen_dummy: Optional[torch.Tensor] = None,
-              screen_dummy_abs: Optional[torch.Tensor] = None
-              ) -> RenderResult:
-    """Differentiable render of one view."""
+              screen_dummy_abs: Optional[torch.Tensor] = None,
+              viewport_row0: Optional[int] = None,
+              viewport_rows: Optional[int] = None) -> RenderResult:
+    """Differentiable render of one view, or of its band of rows
+    [viewport_row0, viewport_row0 + viewport_rows) (row0 a multiple of
+    tile_h): then every image output is (viewport_rows, W, ...)."""
     pr = prepare(xyz=xyz, scale=scale, quat=quat, opacity=opacity,
                  sh_coeffs=sh_coeffs, active_sh_degree=active_sh_degree,
                  normal_world=normal_world, plane_offset=plane_offset,
                  cam=cam, cfg=cfg, alive=alive, rgb_override=rgb_override,
                  screen_dummy=screen_dummy,
-                 screen_dummy_abs=screen_dummy_abs)
+                 screen_dummy_abs=screen_dummy_abs,
+                 viewport_row0=viewport_row0, viewport_rows=viewport_rows)
+    rows = cam.height if viewport_rows is None else viewport_rows
     bcfg = cfg.blend_cfg(render_geo, depth_only)
     out = blend.blend_packed(pr.feats_inst, pr.bins, pr.Wp, pr.Hp, cam.fx,
-                             cam.fy, cam.cx, cam.cy, bcfg
-                             ).crop(cam.height, cam.width)
+                             cam.fy, cam.cx, cam.cy, bcfg, row0=pr.row0
+                             ).crop(rows, cam.width)
     out_color = out.color + out.final_t[..., None] * bg
 
     ibr = None
@@ -174,7 +218,8 @@ def rasterize(*, xyz, scale, quat, opacity, sh_coeffs, active_sh_degree,
     elif render_geo:
         if src is None:
             raise ValueError("rasterize: render_geo requires SourceViews")
-        ibr = epilogue.ibr_epilogue(out, cam, src, cfg.depth_error_threshold)
+        ibr = epilogue.ibr_epilogue(out, cam, src, cfg.depth_error_threshold,
+                                    row0=pr.row0)
         median = ibr.median_depth
     else:
         median = torch.zeros_like(out.final_t)

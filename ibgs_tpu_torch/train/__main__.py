@@ -1,13 +1,19 @@
-"""Training CLI of the port (the counterpart of the root train.py, without
-the Gaussian-sharded mesh).
+"""Training CLI of the port (the counterpart of the root train.py).
 
     python -m ibgs_tpu_torch.train -s <scene_dir> -m <model_dir> [-r 2 ...]
     python -m ibgs_tpu_torch.train --synthetic \\
         --synthetic_spec 4 32 32 300 150 --iterations 3 --device cpu \\
         -m <model_dir>
+    torchrun --nproc_per_node D*N -m ibgs_tpu_torch.train \\
+        --gsp_shards N --dp D -s <scene_dir> -m <model_dir>
 
 Every field of the config groups is a flag (ibgs_tpu_torch/config.py).
-The run goes to the card unless `--device cpu` is given.
+The run goes to the card unless `--device cpu` is given.  With
+`--gsp_shards N` it trains Gaussian-sharded on a (D, N) mesh, one process
+per rank (NCCL on cards, gloo with `--device cpu`); the process group
+comes from torchrun's environment or COORDINATOR_ADDRESS /
+NUM_PROCESSES / PROCESS_ID (parallel/distributed.py), and a 1 x 1 mesh
+needs neither.
 """
 from __future__ import annotations
 
@@ -38,6 +44,12 @@ def build_parser():
                         help="synthetic scene shape (with --synthetic)")
     parser.add_argument("--device", default="cuda",
                         help="torch device of the run (default cuda)")
+    parser.add_argument("--gsp_shards", type=int, default=0,
+                        help="train Gaussian-sharded on a (dp, N) mesh, "
+                             "one process per rank")
+    parser.add_argument("--dp", type=int, default=1,
+                        help="cameras per step on the mesh's dp dim "
+                             "(with --gsp_shards; dp*N processes)")
     return parser
 
 
@@ -46,10 +58,23 @@ def main(argv=None):
     mp = C.extract(args, C.ModelParams)
     opt = C.extract(args, C.OptimizationParams)
     pipe = C.extract(args, C.PipelineParams)
+    mesh = None
+    if args.gsp_shards:
+        # before the scene loads, as in the JAX package
+        from ibgs_tpu_torch.parallel import distributed
+        distributed.initialize(device=args.device)
+        mesh = distributed.global_mesh(args.dp, args.gsp_shards,
+                                       ("dp", "gs"), args.device)
+        print(f"GSP mesh: {args.dp} x {args.gsp_shards} devices across "
+              f"{distributed.world_size()} process(es)")
+        if distributed.world_size() > 1 and not mp.model_path:
+            raise ValueError("a multi-process run needs -m: each process "
+                             "would draw its own output directory")
     if not mp.model_path:
         mp.model_path = os.path.join("./output", str(uuid.uuid4())[:10])
     args.model_path = mp.model_path
-    C.save_config(args, mp.model_path)
+    if mesh is None or distributed.rank() == 0:
+        C.save_config(args, mp.model_path)
 
     if args.synthetic:
         from ibgs_tpu_torch.data.synthetic import make_synthetic_scene
@@ -81,7 +106,10 @@ def main(argv=None):
           test_iterations=tuple(args.test_iterations),
           checkpoint_iterations=tuple(args.checkpoint_iterations),
           start_checkpoint=args.start_checkpoint, quiet=args.quiet,
-          viewer_port=args.port, device=args.device)
+          viewer_port=args.port, device=args.device, mesh=mesh)
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     print("\nTraining complete.")
     return 0
 

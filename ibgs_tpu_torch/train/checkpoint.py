@@ -7,8 +7,10 @@
   statistics, `active_sh_degree`, `max_sh_degree`, `app_ab`,
   `app_opt.{mu,nu}.<i>`, `app_opt.step`, `net.<state_dict key>`,
   `net_opt.{mu,nu}.<i>` in `net.parameters()` order, `net_opt.step`,
-  `spatial_lr_scale`, `__iteration`), written uncompressed.  A save and a
-  load give back every tensor bit for bit.  `load_state` also reads a JAX
+  `spatial_lr_scale`, `__iteration`), written compressed as the JAX
+  package writes its own (`np.savez_compressed`); `load_state` reads
+  compressed and uncompressed files.  A save and a load give back every
+  tensor bit for bit.  `load_state` also reads a JAX
   package checkpoint (positional `leaf_i` keys) through
   `ibgs_tpu_torch.convert.train_state_from_jax_checkpoint`, so a JAX run
   resumes in the port (`--start_checkpoint`).
@@ -71,7 +73,8 @@ def state_arrays(state) -> dict:
 
 
 def save_state(state, iteration: int, path: str):
-    np.savez(path, __iteration=np.int64(iteration), **state_arrays(state))
+    np.savez_compressed(path, __iteration=np.int64(iteration),
+                        **state_arrays(state))
 
 
 def load_state(template, path: str):

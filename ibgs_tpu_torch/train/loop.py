@@ -1,5 +1,4 @@
-"""The training driver (counterpart of ibgs_tpu/train/loop.py, without the
-Gaussian-sharded mesh).
+"""The training driver (counterpart of ibgs_tpu/train/loop.py).
 
 From a scene's seed cloud to a trained model: KNN-scaled initialisation,
 the step schedule (colour-only steps, then geometry rendering with the
@@ -16,6 +15,15 @@ with `seed`.  Device values are read at a densify event (the alive
 count), at a log line (the losses and `nonfinite_grads`) and, in debug
 mode, after every step.  Each step's instance and row counts are host
 ints already (binning sizes its lists exactly).
+
+With `mesh` (a ("dp", "gs") DeviceMesh of parallel/distributed, one
+process per rank) the same driver trains Gaussian-sharded: each rank holds
+its shard of the model (after a one-time `gsp_interleave`), a step is
+`gsp_full_train_step` on dp cameras drawn identically on every rank, each
+dp camera's median depth goes into the depth cache, densification runs
+shard-local (`gsp_densify_fn`, a generator per shard), a capacity growth
+re-interleaves, and evaluation, PLY snapshots and checkpoints use the
+gathered model; rank 0 writes the files and the log.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ from ibgs_tpu_torch.models.gaussians import (DensifyConfig, decay_opacity,
                                              init_from_points,
                                              oneup_sh_degree, reset_opacity)
 from ibgs_tpu_torch.ops.rasterize import RasterConfig
+from ibgs_tpu_torch.parallel import collectives, distributed, gsp, sharding
 from ibgs_tpu_torch.renderer import (render_depth_view, render_view,
                                      source_views_from_stacks)
 from ibgs_tpu_torch.train import checkpoint as ckpt
@@ -71,6 +80,9 @@ def train(
     log_every: int = 200,
     viewer_port: Optional[int] = None,
     device="cuda",
+    mesh=None,
+    gsp_cap_local: Optional[int] = None,
+    gsp_exchange_cap: Optional[int] = None,
 ):
     """Train `scene` into `model_path`; returns (state, stacks), stacks
     holding the train images, the depth cache, the world → view matrices
@@ -78,10 +90,14 @@ def train(
     iteration), densify_log.jsonl (one per densify event: its ms, the
     alive count before and after, the capacity), multi_view.json, the
     PLY snapshots of `save_iterations` and the checkpoints of
-    `checkpoint_iterations`."""
+    `checkpoint_iterations`.  Under `mesh` the exchange's caps default as
+    in the JAX package when `pipe.instance_cap` is set, else to 0 (no cap);
+    the returned state holds this rank's shard."""
     dev = torch.device(device)
+    main = mesh is None or distributed.rank() == 0
     os.makedirs(model_path, exist_ok=True)
-    write_multiview_json(scene, model_path)
+    if main:
+        write_multiview_json(scene, model_path)
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -119,6 +135,39 @@ def train(
         state, first_iter = ckpt.load_state(state, start_checkpoint)
         first_iter += 1
 
+    n_dp, n_gs = 1, 0
+    if mesh is not None:
+        n_dp, n_gs = (collectives.axis_size(mesh, a)
+                      for a in mesh.mesh_dim_names)
+        if H % (n_gs * rcfg.tile_h):
+            raise ValueError(f"height {H} does not split into {n_gs} bands "
+                             f"of whole {rcfg.tile_h}-row tiles")
+        if gsp_cap_local is None:
+            gsp_cap_local = (max(-(-pipe.instance_cap // n_gs) * 2, 4096)
+                             if pipe.instance_cap else 0)
+        if gsp_exchange_cap is None:
+            gsp_exchange_cap = (max(-(-gsp_cap_local // n_gs) * 2, 2048)
+                                if gsp_cap_local else 0)
+        # spread alive rows and free slots over the shards; keep this
+        # rank's
+        state = dataclasses.replace(state, model=gsp.shard_model(
+            gsp.gsp_interleave(state.model, n_gs), mesh))
+        gen = gsp.shard_generator(seed, mesh, dev)
+    dens_fns = {}
+
+    def full_model():
+        """The whole model (gathered over the shards under a mesh: every
+        rank calls it)."""
+        if mesh is None:
+            return state.model
+        return gsp.gather_model(state.model, mesh)
+
+    def n_alive() -> int:
+        if mesh is None:
+            return int(state.model.alive.sum())
+        return int(collectives.psum(state.model.alive.sum().reshape(1),
+                                    mesh, "gs")[0])
+
     dcfg = DensifyConfig(
         grad_threshold=opt.densify_grad_threshold,
         abs_grad_threshold=opt.densify_abs_grad_threshold,
@@ -138,10 +187,13 @@ def train(
             use_aggregation=bool(opt.use_color_aggregation
                                  and it > opt.start_color_aggregation_iter))
         if phase not in steps:
-            steps[phase] = make_train_step(opt, rcfg, state.net, phase)
+            steps[phase] = (make_train_step(opt, rcfg, state.net, phase)
+                            if mesh is None else gsp.gsp_full_train_step(
+                                opt, rcfg, state.net, phase, mesh, W, H,
+                                gsp_cap_local, gsp_exchange_cap))
         return steps[phase], phase
 
-    logger = TrainLogger(model_path)
+    logger = TrainLogger(model_path) if main else None
 
     def gather_src(idx, count, cam):
         return source_views_from_stacks(
@@ -149,14 +201,15 @@ def train(
             stacks["centers"], torch.as_tensor(idx).to(dev), count, cam)
 
     @torch.no_grad()
-    def eval_render(cam, src):
-        res, _ = render_view(state.model, cam, rcfg, bg_fixed, src=src,
+    def eval_render(model, cam, src):
+        res, _ = render_view(model, cam, rcfg, bg_fixed, src=src,
                              learnt_normal=opt.learnt_normal,
                              render_geo=True, return_depth_normal=False)
         return res.render, res.median_depth, res.normal
 
-    def run_eval(it):
-        """PSNR over the test split and a sample of 5 train views."""
+    def run_eval(it, model):
+        """PSNR of `model` over the test split and a sample of 5 train
+        views."""
         sample = [i % n_train for i in range(5, 30, 5)]
         configs = [("test", scene.test_cameras, scene.test_images,
                     scene.test_nearest_ids),
@@ -171,7 +224,7 @@ def train(
                 nb = nbrs_e[k][: opt.number_src_frames]
                 idx2 = np.zeros((rcfg.max_src,), np.int64)
                 idx2[: len(nb)] = nb
-                img, dep, nrm = eval_render(cam_e,
+                img, dep, nrm = eval_render(model, cam_e,
                                             gather_src(idx2, len(nb), cam_e))
                 gt_e = torch.as_tensor(gts_e[k]).to(dev)
                 tot += float(losses.psnr(torch.clamp(img, 0, 1), gt_e))
@@ -184,19 +237,21 @@ def train(
             mean_psnr = tot / len(cams_e)
             print(f"\n[ITER {it}] Evaluating {name}: PSNR {mean_psnr:.2f}")
             logger.scalars(it, {f"{name}/psnr": mean_psnr})
-        alive = state.model.alive.cpu().numpy()
+        alive = model.alive.cpu().numpy()
         logger.histogram(it, "scene/opacity_histogram",
-                         state.model.opacity.cpu().numpy()[alive])
+                         model.opacity.cpu().numpy()[alive])
         logger.scalars(it, {"total_points": int(alive.sum())})
 
     # on resume past the geometry threshold, rebuild the per-view depth
     # cache with a no-grad depth sweep
     if start_checkpoint and first_iter > geo_from:
+        model = full_model()
         with torch.no_grad():
             for ci, cam_i in enumerate(scene.train_cameras):
                 stacks["depths"][ci] = render_depth_view(
-                    state.model, cam_i, rcfg, learnt_normal=opt.learnt_normal)
-        print(f"[resume] depth cache rebuilt for {n_train} views")
+                    model, cam_i, rcfg, learnt_normal=opt.learnt_normal)
+        if main:
+            print(f"[resume] depth cache rebuilt for {n_train} views")
 
     def check_caps(n_inst, n_rows, it):
         """Grow a cap the user set when a step's counts pass it: binning
@@ -223,25 +278,32 @@ def train(
 
     def grow(it, tag=""):
         nonlocal state
-        model, newcap = maybe_grow(state.model, opt.max_all_points)
+        model, newcap = maybe_grow(full_model(), opt.max_all_points)
         if newcap is not None:
+            if mesh is not None:
+                # the new free slots pad the end: deal them out again
+                model = gsp.shard_model(gsp.gsp_interleave(model, n_gs), mesh)
             state = dataclasses.replace(state, model=model)
-            print(f"[it {it}] capacity -> {newcap}{tag}", flush=True)
+            if main:
+                print(f"[it {it}] capacity -> {newcap}{tag}", flush=True)
 
     if viewer_port is not None:
         from ibgs_tpu_torch.eval import viewer as _viewer
-        _viewer.init(port=viewer_port)
+        if main:                 # rank 0 serves; every rank gathers
+            _viewer.init(port=viewer_port)
 
-        def viewer_render(cam, msg):
+        def viewer_render(model, cam):
             # a plain Gaussian render at the viewer's resolution: sources
             # off (count 0, so no warp input is read)
             src = gather_src(np.zeros(rcfg.max_src, np.int64), 0, cam)
-            return eval_render(cam, src)[0]
+            return eval_render(model, cam, src)[0]
 
     stack_order = []
     net_lr = 1e-3
     t_start = time.time()
     profile_dir = pipe.profile_dir or os.path.join(model_path, "trace")
+    if mesh is not None:
+        profile_dir = os.path.join(profile_dir, f"rank{distributed.rank()}")
     profiler = contextlib.ExitStack()
     profiling_now = False
 
@@ -256,7 +318,10 @@ def train(
                 profiling_now = False
                 print(f"[it {it}] profiler trace written to {profile_dir}")
         if viewer_port is not None:
-            _viewer.serve_once(viewer_render, device=dev)
+            model = full_model()
+            if main:
+                _viewer.serve_once(
+                    lambda cam, msg: viewer_render(model, cam), device=dev)
         if it == opt.single_view_weight_from_iter:
             # seed the learnt normals from the smallest covariance axis
             m = state.model
@@ -269,22 +334,33 @@ def train(
         if it % 1000 == 0:
             state = dataclasses.replace(state,
                                         model=oneup_sh_degree(state.model))
-        if not stack_order:
-            stack_order = list(range(n_train))
-        cam_idx = int(stack_order.pop(rng.integers(len(stack_order))))
+        # dp cameras per step (1 without a mesh), drawn identically on
+        # every rank
+        cam_idxs = []
+        for _ in range(n_dp):
+            if not stack_order:
+                stack_order = list(range(n_train))
+            cam_idxs.append(int(stack_order.pop(
+                rng.integers(len(stack_order)))))
+        cam_idx = cam_idxs[0]
         cam = scene.train_cameras[cam_idx]
         gt = stacks["images"][cam_idx]
         step_fn, phase = get_step(it)
 
-        pool = scene.nearest_ids[cam_idx]
-        if opt.shuffle_source_frame and len(pool) > opt.number_src_frames:
-            nbrs = list(rng.choice(pool, size=opt.number_src_frames,
-                                   replace=False))
-        else:
-            nbrs = pool[: opt.number_src_frames]
-        idx = np.zeros((rcfg.max_src,), np.int64)
-        idx[: len(nbrs)] = nbrs
-        src = gather_src(idx, len(nbrs), cam)
+        def build_src(ci):
+            pool = scene.nearest_ids[ci]
+            if (opt.shuffle_source_frame
+                    and len(pool) > opt.number_src_frames):
+                nbrs = list(rng.choice(pool, size=opt.number_src_frames,
+                                       replace=False))
+            else:
+                nbrs = pool[: opt.number_src_frames]
+            sidx = np.zeros((rcfg.max_src,), np.int64)
+            sidx[: len(nbrs)] = nbrs
+            return sidx, gather_src(sidx, len(nbrs), scene.train_cameras[ci])
+
+        src_packs = [build_src(ci) for ci in cam_idxs]
+        idx, src = src_packs[0]
 
         bg = (torch.as_tensor(rng.random(3), dtype=torch.float32).to(dev)
               if opt.random_background else bg_fixed)
@@ -295,8 +371,16 @@ def train(
 
         prev_state = state     # kept one step for the debug dump below
         with profiling.step_annotation("train_step", it, dev):
-            state, aux = step_fn(state, cam, cam_idx, gt, src, it, bg,
-                                 use_app, burned_in, net_lr)
+            if mesh is None:
+                state, aux = step_fn(state, cam, cam_idx, gt, src, it, bg,
+                                     use_app, burned_in, net_lr)
+            else:
+                state, aux = step_fn(
+                    state, sharding._cam_stack(
+                        [scene.train_cameras[ci] for ci in cam_idxs]),
+                    cam_idxs, stacks["images"][cam_idxs],
+                    sharding.stack_sources([s for _, s in src_packs]), it,
+                    bg, use_app, burned_in, net_lr)
 
         # debug mode: a per-step check of the losses and gradients; the
         # first non-finite step dumps its inputs to snapshot_fw.npz (the
@@ -306,9 +390,11 @@ def train(
                 int(aux["nonfinite_grads"]) > 0
                 or not all(np.isfinite(float(aux[k])) for k in LOSS_KEYS[:4])):
             snap = os.path.join(model_path, "snapshot_fw.npz")
-            p = prev_state.model.params
+            prev = (prev_state.model if mesh is None
+                    else gsp.gather_model(prev_state.model, mesh))
+            p = prev.params
             np.savez(snap, iter=it, cam_idx=cam_idx, src_idx=idx,
-                     alive=prev_state.model.alive.cpu().numpy(),
+                     alive=prev.alive.cpu().numpy(),
                      gt=gt.cpu().numpy(), bg=bg.cpu().numpy(),
                      src_images=src.images.cpu().numpy(),
                      src_depths=src.depths.cpu().numpy(),
@@ -326,9 +412,13 @@ def train(
                 f"{int(aux['nonfinite_grads'])}); inputs dumped to {snap}")
 
         if phase.render_geo:
-            stacks["depths"][cam_idx] = aux["median_depth"]
+            if mesh is None:
+                stacks["depths"][cam_idx] = aux["median_depth"]
+            else:
+                for j, ci in enumerate(cam_idxs):
+                    stacks["depths"][ci] = aux["median_depth"][j]
 
-        check_caps(aux["n_instances"], aux["n_rows"], it)
+        check_caps(aux["n_instances"], aux.get("n_rows", 0), it)
 
         # maintenance cadence
         if it < opt.densify_until_iter:
@@ -340,18 +430,28 @@ def train(
                 # capacity, so that clone / split are not slot-starved
                 grow(it, " (pre-densify)")
                 t0 = time.perf_counter()
-                n_before = int(state.model.alive.sum())
-                state = dataclasses.replace(state, model=densify_step(
-                    state.model, gen, dcfg, extent, max_screen=max_screen))
-                n_after = int(state.model.alive.sum())
+                n_before = n_alive()
+                if mesh is None:
+                    model = densify_step(state.model, gen, dcfg, extent,
+                                         max_screen=max_screen)
+                else:
+                    if max_screen not in dens_fns:
+                        dens_fns[max_screen] = gsp.gsp_densify_fn(
+                            mesh, dcfg, max_screen=max_screen)
+                    model = dens_fns[max_screen](state.model, gen, extent)
+                state = dataclasses.replace(state, model=model)
+                n_after = n_alive()
                 ms = (time.perf_counter() - t0) * 1e3
                 grow(it)
-                with open(os.path.join(model_path, "densify_log.jsonl"),
-                          "a") as f:
-                    f.write(json.dumps(dict(
-                        iter=it, ms=ms, n_alive_before=n_before,
-                        n_alive_after=n_after,
-                        capacity=state.model.capacity)) + "\n")
+                rec = dict(iter=it, ms=ms, n_alive_before=n_before,
+                           n_alive_after=n_after,
+                           capacity=state.model.capacity * max(n_gs, 1))
+                if mesh is not None:
+                    rec["gsp_shards"] = n_gs
+                if main:
+                    with open(os.path.join(model_path, "densify_log.jsonl"),
+                              "a") as f:
+                        f.write(json.dumps(rec) + "\n")
             if it % opt.opacity_reset_interval == 0 or (
                     scene.white_background and it == opt.densify_from_iter):
                 state = dataclasses.replace(
@@ -364,38 +464,49 @@ def train(
 
         if it % log_every == 0 or it == first_iter:
             m = {k: float(aux[k]) for k in LOSS_KEYS}
-            m.update(iter=it, points=int(state.model.alive.sum()),
+            m.update(iter=it, points=n_alive(),
                      n_instances=aux["n_instances"],
                      nonfinite_grads=int(aux["nonfinite_grads"]),
                      elapsed=time.time() - t_start)
-            if not quiet:
-                print(f"[it {it}] loss {m['image_loss']:.4f} "
-                      f"psnr {m['psnr']:.2f} pts {m['points']} "
-                      f"inst {m['n_instances']} t {m['elapsed']:.0f}s",
-                      flush=True)
-            with open(os.path.join(model_path, "train_log.jsonl"), "a") as f:
-                f.write(json.dumps(m) + "\n")
-            logger.scalars(it, {
-                "train_loss_patches/l1_loss": float(aux["l1"]),
-                "train_loss_patches/total_loss": m["image_loss"],
-                "train/psnr": m["psnr"],
-            })
+            if mesh is not None and int(aux["n_overflow"]) > 0:
+                m["n_overflow"] = int(aux["n_overflow"])
+                if main:
+                    print(f"[it {it}] WARNING: GSP exchange dropped "
+                          f"{m['n_overflow']} instances (raise "
+                          f"gsp_exchange_cap)")
+            if main:
+                if not quiet:
+                    print(f"[it {it}] loss {m['image_loss']:.4f} "
+                          f"psnr {m['psnr']:.2f} pts {m['points']} "
+                          f"inst {m['n_instances']} t {m['elapsed']:.0f}s",
+                          flush=True)
+                with open(os.path.join(model_path, "train_log.jsonl"),
+                          "a") as f:
+                    f.write(json.dumps(m) + "\n")
+                logger.scalars(it, {
+                    "train_loss_patches/l1_loss": float(aux["l1"]),
+                    "train_loss_patches/total_loss": m["image_loss"],
+                    "train/psnr": m["psnr"],
+                })
 
-        if it in test_iterations:
-            run_eval(it)
-
-        if it in save_iterations:
-            pc_dir = os.path.join(model_path, "point_cloud",
-                                  f"iteration_{it}")
-            os.makedirs(pc_dir, exist_ok=True)
-            ckpt.save_ply_snapshot(state.model,
-                                   os.path.join(pc_dir, "point_cloud.ply"))
-        if it in checkpoint_iterations:
-            ckpt.save_state(state, it,
-                            os.path.join(model_path, f"chkpnt{it}.npz"))
+        if (it in test_iterations or it in save_iterations
+                or it in checkpoint_iterations):
+            model = full_model()
+            if main and it in test_iterations:
+                run_eval(it, model)
+            if main and it in save_iterations:
+                pc_dir = os.path.join(model_path, "point_cloud",
+                                      f"iteration_{it}")
+                os.makedirs(pc_dir, exist_ok=True)
+                ckpt.save_ply_snapshot(
+                    model, os.path.join(pc_dir, "point_cloud.ply"))
+            if main and it in checkpoint_iterations:
+                ckpt.save_state(dataclasses.replace(state, model=model), it,
+                                os.path.join(model_path, f"chkpnt{it}.npz"))
 
     profiler.close()
-    logger.close()
-    if viewer_port is not None:
-        _viewer.shutdown()
+    if main:
+        logger.close()
+        if viewer_port is not None:
+            _viewer.shutdown()
     return state, stacks

@@ -84,6 +84,18 @@ def dssim_l1(pred, gt, lambda_dssim: float = 0.2):
         1.0 - ssim(pred, gt))
 
 
+def image_gradient_weight(img: torch.Tensor, beta: float = 2.0
+                          ) -> torch.Tensor:
+    """Edge-aware weight map of an (H, W, C) image: the larger central
+    difference per pixel, min-max normalised, border 1.  (`beta` is unused,
+    as in the JAX package.)"""
+    gx = torch.abs(img[1:-1, 2:] - img[1:-1, :-2]).mean(-1)
+    gy = torch.abs(img[:-2, 1:-1] - img[2:, 1:-1]).mean(-1)
+    g = torch.maximum(gx, gy)
+    g = (g - g.min()) / (g.max() - g.min() + 1e-12)
+    return F.pad(g, (1, 1, 1, 1), value=1.0)
+
+
 def normal_consistency(rendered_normal, depth_normal, weight: float):
     """Single-view normal loss; inputs (H, W, 3)."""
     l1_term = torch.abs(depth_normal - rendered_normal).sum(-1).mean()
@@ -107,3 +119,31 @@ def multi_view_photometric(gt, warped_stack, valid_mask,
     loss = ((1 - photo_ssim_weight) * l1_term
             + photo_ssim_weight * ssim_term) * photo_weight
     return torch.where(any_valid > 0, loss, 0.0)
+
+
+def patch_offsets(half_patch: int) -> torch.Tensor:
+    """(1, P², 2) grid of integer (x, y) offsets, P = 2·half_patch + 1."""
+    r = torch.arange(-half_patch, half_patch + 1, dtype=torch.float32)
+    oy, ox = torch.meshgrid(r, r, indexing="ij")
+    return torch.stack([ox, oy], -1).reshape(1, -1, 2)
+
+
+def patch_warp(H: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Per-patch homographies (B, 3, 3) applied to pixel grids (B, P, 2)."""
+    huv = torch.cat([uv, torch.ones_like(uv[..., :1])], dim=-1)
+    out = torch.einsum("bik,bpk->bpi", H, huv)
+    return out[..., :2] / (out[..., 2:] + 1e-10)
+
+
+def lncc(ref: torch.Tensor, nea: torch.Tensor):
+    """Local normalised cross-correlation of flattened patches ref / nea
+    (B, P²).  Returns (ncc (B, 1) in [0, 2], mask ncc < 0.9 (B, 1))."""
+    tps = ref.shape[1]
+    ref_sum, nea_sum = ref.sum(-1), nea.sum(-1)
+    ref_avg, nea_avg = ref_sum / tps, nea_sum / tps
+    cross = (ref * nea).sum(-1) - nea_avg * ref_sum
+    ref_var = (ref * ref).sum(-1) - ref_avg * ref_sum
+    nea_var = (nea * nea).sum(-1) - nea_avg * nea_sum
+    cc = cross * cross / (ref_var * nea_var + 1e-8)
+    ncc = torch.clamp(1.0 - cc, 0.0, 2.0)[:, None]
+    return ncc, ncc < 0.9

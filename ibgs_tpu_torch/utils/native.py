@@ -94,6 +94,17 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
+def available() -> bool:
+    """Whether the library builds and loads here (it is built on the first
+    call).  Use `load` where the caller needs it: that raises with the
+    compiler's output."""
+    try:
+        load()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def knn_mean_sq_dist_3(points: np.ndarray) -> np.ndarray:
     """(N, 3) float32 → (N,) mean squared distance to the 3 nearest
     neighbours (exact; Morton order and box culling on the host)."""

@@ -5,11 +5,13 @@ card, its kernels) of the code it wraps and writes it as a Chrome trace
 (viewable in Perfetto or chrome://tracing).  The training loop opens it
 over the `--profile_from_iter` / `--profile_num_steps` window.
 `step_annotation` labels one training step in that trace, and in an
-Nsight timeline through NVTX when the device is a card.
+Nsight timeline through NVTX when the device is a card; `annotate` labels
+any host region.  `trace_files` lists the captures under a directory.
 """
 from __future__ import annotations
 
 import contextlib
+import glob
 import os
 
 import torch
@@ -43,3 +45,13 @@ def step_annotation(name: str, step: int, device="cpu"):
             stack.enter_context(torch.cuda.nvtx.range(label))
         yield
 
+
+def annotate(name: str):
+    """Label a host-side region in the trace timeline."""
+    return torch.profiler.record_function(name)
+
+
+def trace_files(logdir: str):
+    """The Chrome trace files `trace` wrote under `logdir`."""
+    return sorted(glob.glob(os.path.join(logdir, "**", "*.json"),
+                            recursive=True))

@@ -569,3 +569,164 @@ def test_render_split_on_the_card(tmp_path):
     for k in a:
         diff = np.abs(a[k] - b[k])
         assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3, k
+
+
+def _synthetic_state(dev, W=64, H=128):
+    """A train state on the synthetic scene's seed cloud (opacity 0.85,
+    scale 0.06) with a seeded fusion net, its first camera and sources."""
+    from ibgs_tpu_torch.data.synthetic import make_synthetic_scene
+    from ibgs_tpu_torch.models.aggregation import (ColorFusionResidualNet,
+                                                   init_fusion_net)
+    from ibgs_tpu_torch.models.gaussians import init_from_points
+    from ibgs_tpu_torch.renderer import (render_depth_view,
+                                         source_views_from_stacks)
+    from ibgs_tpu_torch.ops.rasterize import RasterConfig
+    from ibgs_tpu_torch.train import trainer
+
+    scene = make_synthetic_scene(n_views=6, width=W, height=H, device=dev)
+    m = init_from_points(scene.points, scene.colors, 2, device=dev)
+    p = m.params
+    m = dataclasses.replace(m, params=dataclasses.replace(
+        p, opacity_logit=torch.full_like(p.opacity_logit, float(
+            np.log(0.85 / 0.15))),
+        log_scale=torch.full_like(p.log_scale, float(np.log(0.06)))))
+    net = init_fusion_net(ColorFusionResidualNet(32),
+                          torch.Generator().manual_seed(0)).to(dev)
+    app = torch.zeros(trainer.APP_CAPACITY, 2, device=dev)
+    state = trainer.TrainState(
+        model=m, app_ab=app, app_opt=trainer.SideOptState.init([app]),
+        net=net, net_opt=trainer.SideOptState.init(list(net.parameters())),
+        spatial_lr_scale=1.0)
+    w2v, centers, _ = scene.poses_stack()
+    depths = torch.stack([render_depth_view(m, c, RasterConfig())
+                          for c in scene.train_cameras])
+    idx = torch.tensor([1, 2, 3, 0, 0], device=dev)
+    cam = scene.train_cameras[0]
+    src = source_views_from_stacks(
+        torch.as_tensor(scene.images).to(dev), depths, w2v, centers, idx, 3,
+        cam)
+    return state, cam, src, torch.as_tensor(scene.images[0]).to(dev)
+
+
+@pytest.mark.gpu
+def test_band_kernels_match_plain():
+    """Bands of rows [0, 64) and [64, 128) of a 64x128 view through
+    `rasterize`'s viewport band on the card: stitched equal to the full
+    frame (rtol 1e-5, atol 1e-6; n_contrib exact); on the second band
+    (row0 64, a band-local tile grid) both kernels against their plain
+    versions, the backward with the cotangents of a real loss."""
+    dev = _cuda()
+    from ibgs_tpu_torch.ops.rasterize import RasterConfig, prepare, rasterize
+
+    state, cam, src, _ = _synthetic_state(dev)
+    m, cfg = state.model, RasterConfig()
+    nw, off = m.oriented_normal(cam.cam_pos)
+    kw = dict(xyz=m.params.xyz, scale=m.scale, quat=m.quat_unit,
+              opacity=m.opacity, sh_coeffs=m.sh_coeffs,
+              active_sh_degree=m.active_sh_degree, normal_world=nw,
+              plane_offset=off, cam=cam, cfg=cfg, alive=m.alive)
+    with torch.no_grad():
+        full = rasterize(**kw, bg=torch.zeros(3, device=dev), src=src)
+        bands = [rasterize(**kw, bg=torch.zeros(3, device=dev), src=src,
+                           viewport_row0=r0, viewport_rows=64)
+                 for r0 in (0, 64)]
+    for f in ("render", "final_t", "median_depth"):
+        torch.testing.assert_close(torch.cat([getattr(b, f) for b in bands]),
+                                   getattr(full, f), rtol=1e-5, atol=1e-6)
+    assert torch.equal(torch.cat([b.n_contrib for b in bands]),
+                       full.n_contrib)
+
+    pr = prepare(**kw, viewport_row0=64, viewport_rows=64)
+    assert pr.Hp == 64 and pr.row0 == 64 and pr.bins.n_instances > 0
+    for mode in (0, 1, 2):
+        bcfg = cfg.blend_cfg(render_geo=mode == 1, depth_only=mode == 2)
+        args = (pr.feats_inst, pr.bins.tile_start, pr.bins.tile_stop, pr.Wp,
+                pr.Hp, cam.fx, cam.fy, cam.cx, cam.cy, bcfg, 64.0)
+        _assert_fwd_matches(blend.blend_fwd_cuda(*args),
+                            blend.blend_plain(*args))
+
+    recorded, kernel = [], blend.blend_bwd_cuda
+
+    def recorder(*a):
+        recorded.append(a)
+        return kernel(*a)
+    leaf = m.params.sh_dc.detach().requires_grad_(True)
+    blend.blend_bwd_cuda = recorder
+    try:
+        m2 = dataclasses.replace(m, params=dataclasses.replace(
+            m.params, sh_dc=leaf))
+        res = rasterize(**dict(kw, sh_coeffs=m2.sh_coeffs),
+                        bg=torch.zeros(3, device=dev), src=src,
+                        viewport_row0=64, viewport_rows=64)
+        torch.autograd.grad(res.render.sum() + res.median_depth.mean(),
+                            [leaf])
+    finally:
+        blend.blend_bwd_cuda = kernel
+    *head, saved, cts, row0 = recorded[0]
+    assert row0 == 64.0
+    got = blend.blend_bwd_cuda(*head, saved, cts, row0)
+    again = blend.blend_bwd_cuda(*head, saved, cts, row0)
+    _assert_columns_close(got, blend.blend_bwd_plain(*head, saved, cts, row0))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_gsp_step_at_world_size_one_matches_single_chip():
+    """`gsp_full_train_step` on a 1 x 1 mesh under NCCL, on its fast path
+    (exact caps) and its generic exchange (exchange_cap < cap_local,
+    nothing dropped), against the single-chip step: losses within 2e-5
+    relative, parameters within 2.05·lr of their group with at most 5% of
+    entries over 1e-6 (tests/test_gsp.py's bounds), no overflow; the two
+    paths' results bit-identical."""
+    dev = _cuda()
+    import copy
+
+    import torch.distributed as dist
+
+    from ibgs_tpu_torch.models.gaussians import PARAM_FIELDS, lr_tree
+    from ibgs_tpu_torch.ops.rasterize import RasterConfig
+    from ibgs_tpu_torch.parallel import distributed, gsp, sharding
+    from ibgs_tpu_torch.train import trainer
+    from ibgs_tpu_torch.config import OptimizationParams
+
+    state, cam, src, gt = _synthetic_state(dev)
+    opt = OptimizationParams(use_color_aggregation=True, number_src_frames=3,
+                             nb_visible_src_frames=2)
+    phase = trainer.StepPhase(render_geo=True, use_aggregation=True)
+    rcfg = RasterConfig()
+    args = (13000, torch.zeros(3, device=dev), False, 1.0, 1e-3)
+    s1 = copy.deepcopy(state)
+    s1, one = trainer.make_train_step(opt, rcfg, s1.net, phase)(
+        s1, cam, 0, gt, src, *args)
+    n = one["n_instances"]
+    mesh = distributed.global_mesh(1, 1, ("dp", "gs"), dev)
+    try:
+        assert dist.get_backend() == "nccl"
+        out = {}
+        for name, caps in (("fast", (0, 0)), ("generic", (2 * n, n))):
+            st = copy.deepcopy(state)
+            st = dataclasses.replace(st, model=gsp.shard_model(st.model, mesh))
+            step = gsp.gsp_full_train_step(opt, rcfg, st.net, phase, mesh,
+                                           cam.width, cam.height, *caps)
+            out[name] = step(st, sharding._cam_stack([cam]), [0], gt[None],
+                             sharding.stack_sources([src]), *args)
+    finally:
+        dist.destroy_process_group()
+    lrs = lr_tree(trainer.make_lr_config(opt), 13000, 1.0)
+    for name, (st, aux) in out.items():
+        assert int(aux["n_overflow"]) == 0 and int(aux["nonfinite_grads"]) == 0
+        for k in ("loss", "image_loss", "normal_loss", "agg_loss", "psnr"):
+            a, b = float(one[k]), float(aux[k])
+            assert abs(a - b) <= 2e-5 * max(abs(a), 1.0), (name, k, a, b)
+        for f in PARAM_FIELDS:
+            a, b = getattr(s1.model.params, f), getattr(st.model.params, f)
+            if a.numel() == 0:
+                continue
+            d = (a - b).abs()
+            assert float(d.max()) <= 2.05 * getattr(lrs, f), (name, f)
+            assert float((d > 1e-6).float().mean()) < 0.05, (name, f)
+    fast, gen = out["fast"][0].model, out["generic"][0].model
+    for t in ("params", "mu", "nu"):
+        for f in PARAM_FIELDS:
+            assert torch.equal(getattr(getattr(fast, t), f),
+                               getattr(getattr(gen, t), f)), (t, f)
