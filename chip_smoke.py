@@ -65,13 +65,36 @@ Phases, one JSON line each; any failure makes the exit code 1:
              PSNR rises before the reset and after it, exact launches,
              densify through gsp_densify_fn, the checkpoint equal to the
              run's PLY
+  drivers    the port's drivers: `scripts/train_runs prod` in process at
+             the JAX package's 1M configuration (1M seeds, 1.5M ground
+             truth points, 16 views at 960x544, thresholds 8e-5 / 1.6e-4,
+             the debug trip wire) cut to 60 iterations with the instance
+             cap just under the first step's count, the capacity at 2^20
+             (95% occupied) before the densify event at 20, and one
+             evaluation: the native KNN at init, both growth events,
+             finite losses, rising PSNR, exact launches; the bundle it
+             writes read by `convert` and served once (5 forward
+             launches); the snapshot replay of every 16th alive row of
+             the run's model with one NaN log-scale row and the example,
+             each with the kernels against the plain path on the card;
+             `python -m
+             ibgs_tpu_torch.exp_script` on the COLMAP fixture (three
+             subprocesses, whose launches are not counted): its result
+             files and PSNR; eval_geometry's chamfer of the eval phase's
+             mesh against itself (0) and against a copy shifted by 1e-4
+             along x (within 1%)
   kernels    each kernel with its launches on the serving, train, loop,
-             eval and parallel paths (the parallel count takes only the
-             band renders, the two GSP steps and the CLI run, not the
-             full-frame and single-chip references they are held to)
+             eval, parallel and drivers paths (the parallel count takes
+             only the band renders, the two GSP steps and the CLI run, not
+             the full-frame and single-chip references they are held to;
+             the drivers count the production run and the bundle's served
+             view, not the replay and example renders held to the plain
+             path)
 
 then the nvidia-smi line and, last, {"ok": true, "device": {...}}.
 """
+import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -160,6 +183,46 @@ PAR_LOOP_SCHEDULE = dict(
     color_aggregate_burnin_steps=10)
 PAR_LOOP_EVALS = (1, 39, 41, 80)
 PAR_LOOP_DIR = os.path.join(ROOT, "build", "chip_smoke_parallel")
+EVAL_MESH = os.path.join(ROOT, "build", "chip_smoke_eval_mesh.ply")
+# the drivers phase's production run: the JAX package's 1M configuration
+# (1M seed splats from 1.5M ground-truth points, 16 views at 960x544, the
+# aggressive thresholds 8e-5 / 1.6e-4, the debug trip wire armed), cut to
+# 60 iterations: the instance cap just under the seed model's fewest
+# instances over the train views (it grows at the first steps), one densify
+# event at 20 with the capacity at 2^20 (1M seeds fill 95.4% of it, so it
+# doubles before the densify), geometry from 32 (28 steps: every view's
+# depth cache filled twice for the bundle), and one evaluation at 60
+DRV_DIR = os.path.join(ROOT, "build", "chip_smoke_drivers")
+DRV_ITERS = 60
+DRV_INIT_CAPACITY = 1 << 20
+DRV_ARGS = ["--seed_pts", "1000000", "--gt", "1500000", "--grad_th", "8e-5",
+            "--abs_th", "1.6e-4", "--init_capacity", str(DRV_INIT_CAPACITY),
+            "--debug", "1", "--log_every", "1", "--iters", str(DRV_ITERS)]
+DRV_SCHEDULE = dict(densify_from_iter=10, densification_interval=10,
+                    densify_until_iter=25, single_view_weight_from_iter=60,
+                    multi_view_weight_from_iter=60)
+DRV_EVAL_VIEWS = 7                 # 2 test views and 5 train views
+# the suite runner on the COLMAP fixture: the JAX package's
+# tests/test_colmap_e2e.py schedule without --backend
+DRV_SUITE_EXTRA = [
+    "--eval", "--iterations", "15", "--densify_from_iter", "6",
+    "--densification_interval", "6", "--densify_until_iter", "12",
+    "--single_view_weight_from_iter", "8", "--multi_view_weight_from_iter",
+    "8", "--use_color_aggregation", "--start_color_aggregation_iter", "10",
+    "--color_aggregate_burnin_steps", "3", "--number_src_frames", "2",
+    "--nb_visible_src_frames", "2", "--position_lr_max_steps", "15",
+    "--multi_view_num", "3", "--multi_view_max_angle", "120",
+    "--multi_view_max_dis", "10", "--instance_cap", "16384",
+    "--save_iterations", "15", "--test_iterations", "15",
+    "--checkpoint_iterations", "15", "--quiet"]
+DRV_SUITE_TIMEOUT_S = 300
+# the replay's snapshot: every 16th alive row of the run's model (about
+# 63k of 1M) and the poisoned one, so that the plain path's three
+# backward walks stay within seconds
+DRV_REPLAY_STRIDE = 16
+# eval_geometry's shift: far below the 1M surface samples' spacing, so
+# each shifted sample's nearest neighbour is its own original
+DRV_CHAMFER_SHIFT = 1e-4
 
 
 def emit(obj):
@@ -812,6 +875,8 @@ def eval_phase(d, dev, failures):
     if not all(math.isfinite(rec[k]) for k in ("fps", "model_mb", "memory")):
         failures.append(f"eval: fps / model_mb / memory {rec['fps']}, "
                         f"{rec['model_mb']}, {rec['memory']}")
+    # the drivers phase evaluates geometry on this mesh
+    shutil.copyfile(os.path.join(model_dir, "mesh.ply"), EVAL_MESH)
     shutil.rmtree(model_dir, ignore_errors=True)
     rec["phase_s"] = time.perf_counter() - t_phase
     return rec, launches
@@ -1144,6 +1209,332 @@ def parallel_phase(d, dev, scenes, inputs, opt, rcfg, failures):
         failures.append(f"parallel: the band's backward ran at row0 {r0}")
     kc["max_abs_err"] = {"blend_fwd": fwd_err, "blend_bwd": bwd_err}
     rec["band_kernels"] = kc
+    return rec, launches
+
+
+@contextlib.contextmanager
+def plain_blend():
+    """Route the blend wrappers to their plain versions on the card, so a
+    driver runs its plain path on the same device and inputs."""
+    from ibgs_tpu_torch.ops import blend
+    kernels = blend.blend_fwd_cuda, blend.blend_bwd_cuda
+    blend.blend_fwd_cuda, blend.blend_bwd_cuda = (blend.blend_plain,
+                                                  blend.blend_bwd_plain)
+    try:
+        yield
+    finally:
+        blend.blend_fwd_cuda, blend.blend_bwd_cuda = kernels
+
+
+def drivers_phase(dev, failures):
+    """The port's drivers on the card: the production run at 1M seeds
+    through `scripts/train_runs` (in process), the bundle it writes served
+    once, the suite runner on the COLMAP fixture (subprocesses: their
+    launches are the child processes' and are not counted), the snapshot
+    replay and the example against their plain paths, and eval_geometry on
+    the eval phase's mesh.  Returns (the phase's record, the launches of
+    the production run and the bundle's served view)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from ibgs_tpu_torch import convert
+    from ibgs_tpu_torch.config import OptimizationParams
+    from ibgs_tpu_torch.eval.render_driver import EvalRenderer
+    from ibgs_tpu_torch.examples import render_synthetic as example
+    from ibgs_tpu_torch.models import gaussians
+    from ibgs_tpu_torch.models.aggregation import (ColorFusionResidualNet,
+                                                   init_fusion_net)
+    from ibgs_tpu_torch.ops import blend
+    from ibgs_tpu_torch.ops.rasterize import RasterConfig, prepare
+    from ibgs_tpu_torch.renderer import source_views_from_stacks
+    from ibgs_tpu_torch.scripts import eval_geometry, replay_snapshot
+    from ibgs_tpu_torch.scripts import train_runs
+    from ibgs_tpu_torch.utils import native
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(DRV_DIR, ignore_errors=True)
+    os.makedirs(DRV_DIR)
+    rec = {"phase": "drivers"}
+
+    # ---- the production run at 1M seed splats ------------------------------
+    bundle_path = os.path.join(DRV_DIR, "bundle.npz")
+    out = os.path.join(DRV_DIR, "prod")
+    pl = train_runs.plan(["prod", out, "--bundle", bundle_path,
+                          "--device", str(dev)] + DRV_ARGS)
+    pl.opt = dataclasses.replace(pl.opt, **DRV_SCHEDULE)
+    pl.train["test_iterations"] = (DRV_ITERS,)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        scene = train_runs.build_scene(pl)
+    torch.cuda.synchronize()
+    scene_s = time.perf_counter() - t0
+    n_seed = int(scene.points.shape[0])
+    # the instance cap: just under the seed model's fewest instances over
+    # the train views, so the first steps overflow it whichever view
+    # comes first
+    probe_cfg = RasterConfig(staircase_cull=True)
+    seed_model = gaussians.init_from_points(
+        scene.points, scene.colors, 2, capacity=DRV_INIT_CAPACITY,
+        device=dev)
+    counts = []
+    with torch.no_grad():
+        for cam in scene.train_cameras:
+            nw, off = seed_model.oriented_normal(cam.cam_pos, learnt=True)
+            counts.append(prepare(
+                xyz=seed_model.params.xyz, scale=seed_model.scale,
+                quat=seed_model.quat_unit, opacity=seed_model.opacity,
+                sh_coeffs=seed_model.sh_coeffs,
+                active_sh_degree=seed_model.active_sh_degree,
+                normal_world=nw, plane_offset=off, cam=cam, cfg=probe_cfg,
+                alive=seed_model.alive).bins.n_instances)
+    del seed_model
+    cap = min(counts) - 1
+    pl.pipe = dataclasses.replace(pl.pipe, instance_cap=cap)
+
+    knn_ms, grow_ms = [], []
+    knn, grow = native.knn_mean_sq_dist_3, gaussians.grow_capacity
+
+    def timed_knn(pts):
+        t = time.perf_counter()
+        r = knn(pts)
+        knn_ms.append((time.perf_counter() - t) * 1e3)
+        return r
+
+    def timed_grow(model, cap_):
+        holder = {}
+        grow_ms.append(host_ms(lambda: holder.update(m=grow(model, cap_))))
+        return holder["m"]
+
+    native.knn_mean_sq_dist_3, gaussians.grow_capacity = timed_knn, timed_grow
+    for k in blend.LAUNCHES:
+        blend.LAUNCHES[k] = 0
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            res, state, stacks, _ = train_runs.run(pl, scene)
+    finally:
+        native.knn_mean_sq_dist_3, gaussians.grow_capacity = knn, grow
+    torch.cuda.synchronize()
+    run_launches = dict(blend.LAUNCHES)
+
+    log = read_jsonl(os.path.join(out, "train_log.jsonl"))
+    events = read_jsonl(os.path.join(out, "densify_log.jsonl"))
+    by_it = {m["iter"]: m for m in log}
+    skip = {1, 2, DRV_ITERS} | {e["iter"] for e in events}
+    it_ms = [(by_it[i]["elapsed"] - by_it[i - 1]["elapsed"]) * 1e3
+             for i in range(2, DRV_ITERS + 1)
+             if i not in skip and i in by_it and i - 1 in by_it]
+    cap_grown = [e for e in res["events"] if e["event"] == "instance_cap"]
+    cap_events = [e for e in res["events"] if e["event"] == "capacity"]
+    prod = {
+        "seed_points": n_seed, "native_knn_min_points":
+            gaussians.NATIVE_KNN_MIN_POINTS,
+        "native_knn_ms": knn_ms, "scene_build_s": scene_s,
+        "first_step_instances_per_view": counts, "instance_cap": cap,
+        "init_capacity": DRV_INIT_CAPACITY,
+        "occupancy_at_densify": (events[0]["n_alive_before"]
+                                 / DRV_INIT_CAPACITY if events else None),
+        "capacity_after": events[0]["capacity"] if events else None,
+        "grow_capacity_ms": grow_ms, "densify": events,
+        "growth_events": res["events"],
+        "ms_per_iteration": dict(median_range(it_ms), counted=len(it_ms))
+        if it_ms else None,
+        "ms_at_growth_iterations": {
+            i: (by_it[i]["elapsed"] - by_it.get(i - 1, {"elapsed": 0.0})[
+                "elapsed"]) * 1e3 for i in sorted(skip - {DRV_ITERS})
+            if i in by_it},
+        "wall_s": res["wall_s"], "it_per_s": res["it_per_s"],
+        "psnr_first_last": [log[0]["psnr"], log[-1]["psnr"]],
+        "evaluations": res["evaluations"], "points_final":
+            res["points_final"],
+        "max_memory_allocated": res.get("max_memory_allocated"),
+        "max_memory_reserved": res.get("max_memory_reserved"),
+        "launches": run_launches}
+    rec["prod"] = prod
+    if not (n_seed > gaussians.NATIVE_KNN_MIN_POINTS and len(knn_ms) == 1):
+        failures.append(f"drivers: the init of {n_seed} seeds took the "
+                        f"native KNN {len(knn_ms)} times, expected once")
+    if not cap_grown:
+        failures.append("drivers: the instance cap did not grow")
+    if not (cap_events and events and events[0]["capacity"]
+            > DRV_INIT_CAPACITY and prod["occupancy_at_densify"] > 0.9
+            and grow_ms):
+        failures.append(f"drivers: no capacity growth at the densify "
+                        f"event: {events} {cap_events}")
+    bad = [m["iter"] for m in log if m["nonfinite_grads"]
+           or not all(math.isfinite(m[k]) for k in
+                      ("image_loss", "normal_loss", "photo_loss",
+                       "agg_loss", "psnr"))]
+    if bad or sorted(by_it) != list(range(1, DRV_ITERS + 1)):
+        failures.append(f"drivers: non-finite or missing iterations {bad}")
+    if not log[-1]["psnr"] > log[0]["psnr"]:
+        failures.append(f"drivers: PSNR {log[0]['psnr']} at iteration 1, "
+                        f"{log[-1]['psnr']} at {DRV_ITERS}")
+    want = {"blend_fwd": DRV_ITERS + DRV_EVAL_VIEWS, "blend_bwd": DRV_ITERS}
+    if run_launches != want:
+        failures.append(f"drivers: production run launches {run_launches}, "
+                        f"expected {want}")
+
+    # ---- a snapshot of the run's model with one poisoned row ---------------
+    opt = pl.opt
+    cam_idx = 0
+    cam = scene.train_cameras[cam_idx]
+    nb = list(scene.nearest_ids[cam_idx][:opt.number_src_frames])
+    idx = np.zeros(5, np.int64)
+    idx[:len(nb)] = nb
+    src = source_views_from_stacks(
+        stacks["images"], stacks["depths"], stacks["w2v"], stacks["centers"],
+        torch.as_tensor(idx).to(dev), len(nb), cam)
+    m = state.model
+    params = {k: getattr(m.params, k).detach().cpu().numpy()
+              for k in gaussians.PARAM_FIELDS}
+    alive = m.alive.cpu().numpy()
+    # the alive row nearest the view's centre ray, poisoned, in every
+    # DRV_REPLAY_STRIDE-th alive row of the run's model
+    pc = params["xyz"] @ cam.view[:3, :3].cpu().numpy().T \
+        + cam.view[:3, 3].cpu().numpy()
+    off = np.hypot(pc[:, 0], pc[:, 1]) / np.maximum(pc[:, 2], 1e-6)
+    off[~alive | (pc[:, 2] <= 0.2)] = np.inf
+    keep = np.union1d(np.flatnonzero(alive)[::DRV_REPLAY_STRIDE],
+                      [int(np.argmin(off))])
+    row = int(np.searchsorted(keep, int(np.argmin(off))))
+    snap = {k: v[keep] for k, v in params.items()}
+    snap["log_scale"][row, 0] = np.nan
+    snap.update(iter=DRV_ITERS, cam_idx=cam_idx, src_idx=idx,
+                alive=np.ones(len(keep), bool),
+                gt=stacks["images"][cam_idx].cpu().numpy(),
+                bg=np.zeros(3, np.float32),
+                src_images=src.images.cpu().numpy(),
+                src_depths=src.depths.cpu().numpy(),
+                src_ref_to_src=src.ref_to_src.cpu().numpy(),
+                src_cam_pos=src.cam_pos.cpu().numpy(), src_count=len(nb),
+                burned_in=0.5, use_app=False, nonfinite_grads=0)
+    snap_path = os.path.join(DRV_DIR, "snapshot_fw.npz")
+    np.savez(snap_path, **snap)
+    del state, stacks, m, src, params
+    torch.cuda.empty_cache()
+
+    # ---- the bundle, served once --------------------------------------------
+    d = dict(np.load(bundle_path))
+    wh = SIZES[0]
+    sc = convert.bundle_scene(d, wh[0], wh[1], dev)
+    net = init_fusion_net(ColorFusionResidualNet(
+        32, opt.feat_aggregate_mode), torch.Generator().manual_seed(0))
+    ev = EvalRenderer(sc["model"], net, sc["images"], sc["w2v"],
+                      sc["centers"], sc["train_cameras"], OptimizationParams(),
+                      RasterConfig(staircase_cull=True), device=dev)
+    before = dict(blend.LAUNCHES)
+    o = ev.render_one(sc["cam"], list(range(sc["count"])))
+    torch.cuda.synchronize()
+    serve_launches = {k: blend.LAUNCHES[k] - before[k] for k in before}
+    finite = all(bool(torch.isfinite(v).all()) for v in o.values()
+                 if torch.is_tensor(v) and v.is_floating_point())
+    rec["bundle"] = {"bytes": os.path.getsize(bundle_path),
+                     "splats": int(d["xyz"].shape[0]),
+                     "src_count": int(d["src_count"]), "finite": finite,
+                     "launches": serve_launches,
+                     "n_instances": o["n_instances"]}
+    if not finite or serve_launches != {"blend_fwd": 5, "blend_bwd": 0} \
+            or int(d["xyz"].shape[0]) != res["points_final"]:
+        failures.append(f"drivers: bundle {rec['bundle']}")
+    del ev, sc, o, d
+    launches = {k: blend.LAUNCHES[k] for k in blend.LAUNCHES}
+
+    # ---- replay: the kernels against the plain path ------------------------
+    d = dict(np.load(snap_path))
+    reps = {}
+    for name in ("kernel", "plain"):
+        t0 = time.perf_counter()
+        with (plain_blend() if name == "plain" else contextlib.nullcontext()):
+            reps[name] = replay_snapshot.replay(d, cam, dev)
+        torch.cuda.synchronize()
+        reps[name]["s"] = time.perf_counter() - t0
+    counts_of = {name: {t: (r["leaves"], r["screen"], len(r["rows"]))
+                        for t, r in rep["terms"].items()}
+                 for name, rep in reps.items()}
+    rec["replay"] = {"rows": len(keep), "row": row,
+                     "kernel": counts_of["kernel"],
+                     "plain": counts_of["plain"],
+                     "s": {k: reps[k]["s"] for k in reps},
+                     "input_nonfinite": {k: h["nonfinite"] for k, h in
+                                         reps["kernel"]["input"].items()}}
+    if counts_of["kernel"] != counts_of["plain"] or not any(
+            row in r["rows"] for r in reps["kernel"]["terms"].values()):
+        failures.append(f"drivers: replay {rec['replay']}")
+    del reps, d, scene
+    torch.cuda.empty_cache()
+
+    # ---- the example: kernels against the plain path -----------------------
+    ex = example.grid_scene(device=dev)
+    k_out = example.render(ex)
+    with plain_blend():
+        p_out = example.render(ex)
+    torch.cuda.synchronize()
+    err, ex_ok = {}, True
+    for f in ("render", "median_depth", "normal", "final_t"):
+        a, b = getattr(k_out, f), getattr(p_out, f)
+        e = (a - b).abs()
+        err[f] = float(e.max())
+        ex_ok &= bool((e <= TOL_ABS + TOL_REL * b.abs()).all()
+                      and torch.isfinite(a).all())
+    mism = int((k_out.n_contrib != p_out.n_contrib).sum())
+    gx = example.xyz_grad(ex)
+    rec["example"] = {"max_abs_err": err, "n_contrib_mismatch": mism,
+                      "n_instances": k_out.n_instances,
+                      "grad_finite": bool(torch.isfinite(gx).all()),
+                      "grad_max": float(gx.abs().max())}
+    if not ex_ok or mism > INT_MISMATCH_SHARE * k_out.n_contrib.numel() \
+            or not rec["example"]["grad_finite"]:
+        failures.append(f"drivers: example {rec['example']}")
+
+    # ---- the suite runner on the COLMAP fixture ----------------------------
+    suite_out = os.path.join(DRV_DIR, "suite")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ibgs_tpu_torch.exp_script", "--data_root",
+         os.path.join(ROOT, "tests", "fixtures"), "--out_root", suite_out,
+         "--scenes", "mini_colmap", "--device", str(dev), "--extra",
+         *DRV_SUITE_EXTRA], cwd=ROOT, capture_output=True, text=True,
+        timeout=DRV_SUITE_TIMEOUT_S)
+    scene_dir = os.path.join(suite_out, "custom", "mini_colmap")
+    files = {f: os.path.exists(os.path.join(scene_dir, f)) for f in (
+        "result_fps_mem.json", "results_renders.json",
+        "results_renders_aggregate.json", "per_view_renders.json")}
+    psnr = {}
+    for f in ("results_renders.json", "results_renders_aggregate.json"):
+        if files[f]:
+            with open(os.path.join(scene_dir, f)) as fh:
+                (vals,) = json.load(fh).values()
+            psnr[f] = vals["PSNR"]
+    rec["suite"] = {"rc": proc.returncode, "s": time.perf_counter() - t0,
+                    "files": files, "psnr": psnr,
+                    "stderr_tail": proc.stderr[-400:]
+                    if proc.returncode else ""}
+    if proc.returncode or not all(files.values()) or len(psnr) != 2 or \
+            not all(math.isfinite(v) and v > 5.0 for v in psnr.values()):
+        failures.append(f"drivers: suite runner {rec['suite']}")
+
+    # ---- eval_geometry on the eval phase's mesh ----------------------------
+    from ibgs_tpu_torch.eval import tsdf
+    verts, faces = tsdf.load_mesh_ply(EVAL_MESH)
+    shifted = os.path.join(DRV_DIR, "mesh_shifted.ply")
+    tsdf.save_mesh_ply(shifted, verts + np.array(
+        [DRV_CHAMFER_SHIFT, 0.0, 0.0], np.float32), faces)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        same = eval_geometry.main(["chamfer", "--mesh", EVAL_MESH, "--gt",
+                                   EVAL_MESH, "--downsample", "0"])
+        moved = eval_geometry.main(["chamfer", "--mesh", shifted, "--gt",
+                                    EVAL_MESH, "--downsample", "0"])
+    rec["eval_geometry"] = {"vertices": len(verts), "faces": len(faces),
+                            "self": same, "shift": DRV_CHAMFER_SHIFT,
+                            "shifted": moved,
+                            "s": time.perf_counter() - t0}
+    if same["overall"] != 0.0 or abs(moved["overall"] - DRV_CHAMFER_SHIFT) \
+            > 0.01 * DRV_CHAMFER_SHIFT:
+        failures.append(f"drivers: eval_geometry {rec['eval_geometry']}")
+    shutil.rmtree(DRV_DIR, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
     return rec, launches
 
 
@@ -1566,6 +1957,11 @@ def main():
     emit(rec)
     del par_in
 
+    # ---- drivers: the production run at 1M seeds, bundle, suite, replay -----
+    torch.cuda.empty_cache()
+    rec, drv_launches = drivers_phase(dev, failures)
+    emit(rec)
+
     # ---- kernels -----------------------------------------------------------
     size0 = f"{SIZES[0][0]}x{SIZES[0][1]}"
     fwd_main = next(c for c in fwd_cases
@@ -1577,7 +1973,8 @@ def main():
                             "loop": loop_launches[k],
                             "loop_resume": resume_launches[k],
                             "eval": eval_launches[k],
-                            "parallel": par_launches[k]}
+                            "parallel": par_launches[k],
+                            "drivers": drv_launches[k]}
                         for k in blend.LAUNCHES}
     emit({"phase": "kernels", "launches": launches_by_path})
     for k, by_path in launches_by_path.items():
@@ -1587,6 +1984,8 @@ def main():
             failures.append(f"{k} was not launched on the loop path")
         if by_path["parallel"] == 0:
             failures.append(f"{k} was not launched on the parallel path")
+        if by_path["drivers"] == 0:
+            failures.append(f"{k} was not launched on the drivers path")
     if serve_launches["blend_fwd"] == 0:
         failures.append("blend_fwd was not launched on the serving path")
     if eval_launches["blend_fwd"] == 0:

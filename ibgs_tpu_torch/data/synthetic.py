@@ -5,7 +5,11 @@ files on disk.  The ground-truth images are rendered by the port's own
 rasterizer from a dense splat set (the plain blend on the CPU, the CUDA
 forward on the card).  The numpy random calls are the JAX package's, in
 the same order, so points, colours, seed indices and noise match its
-scene exactly.
+scene exactly.  The ground truth is rendered with exact-size instance
+lists; the JAX package caps its ground-truth render (`gt_instance_cap`,
+by default the power of two above 12 instances per point, at least
+2^15) and so drops the deepest splats where a view needs more, as at
+960x544 with 150,000 points (3.3M instances against 2^21).
 """
 from __future__ import annotations
 

@@ -88,7 +88,9 @@ def train(
     holding the train images, the depth cache, the world → view matrices
     and the camera centres.  Writes train_log.jsonl (one record per logged
     iteration), densify_log.jsonl (one per densify event: its ms, the
-    alive count before and after, the capacity), multi_view.json, the
+    alive count before and after, the capacity), events.jsonl (one per
+    growth of the instance cap, the row cap or the capacity, and one per
+    evaluated split with its PSNR), multi_view.json, the
     PLY snapshots of `save_iterations` and the checkpoints of
     `checkpoint_iterations`.  Under `mesh` the exchange's caps default as
     in the JAX package when `pipe.instance_cap` is set, else to 0 (no cap);
@@ -195,6 +197,12 @@ def train(
 
     logger = TrainLogger(model_path) if main else None
 
+    def log_event(it, event, **fields):
+        if main:
+            with open(os.path.join(model_path, "events.jsonl"), "a") as f:
+                f.write(json.dumps(dict(iter=it, event=event, **fields))
+                        + "\n")
+
     def gather_src(idx, count, cam):
         return source_views_from_stacks(
             stacks["images"], stacks["depths"], stacks["w2v"],
@@ -236,6 +244,7 @@ def train(
                                  (nrm.cpu().numpy() + 1) / 2)
             mean_psnr = tot / len(cams_e)
             print(f"\n[ITER {it}] Evaluating {name}: PSNR {mean_psnr:.2f}")
+            log_event(it, "eval", split=name, psnr=mean_psnr)
             logger.scalars(it, {f"{name}/psnr": mean_psnr})
         alive = model.alive.cpu().numpy()
         logger.histogram(it, "scene/opacity_histogram",
@@ -264,6 +273,8 @@ def train(
             print(f"[it {it}] WARNING: tile instances {n_inst} exceed "
                   f"instance_cap {rcfg.instance_cap} (deepest splats "
                   f"dropped); growing cap -> {newcap}")
+            log_event(it, "instance_cap", count=n_inst,
+                      old=rcfg.instance_cap, new=newcap)
             rcfg = dataclasses.replace(rcfg, instance_cap=newcap)
             grew = True
         row_eff = rcfg.row_cap or rcfg.instance_cap // 2
@@ -271,6 +282,7 @@ def train(
             newrows = _grown_cap(n_rows)
             print(f"[it {it}] WARNING: staircase rows {n_rows} exceed "
                   f"row_cap {row_eff}; growing -> {newrows}")
+            log_event(it, "row_cap", count=n_rows, old=row_eff, new=newrows)
             rcfg = dataclasses.replace(rcfg, row_cap=newrows)
             grew = True
         if grew:
@@ -278,8 +290,11 @@ def train(
 
     def grow(it, tag=""):
         nonlocal state
-        model, newcap = maybe_grow(full_model(), opt.max_all_points)
+        full = full_model()
+        model, newcap = maybe_grow(full, opt.max_all_points)
         if newcap is not None:
+            log_event(it, "capacity", old=full.capacity, new=newcap,
+                      pre_densify=bool(tag))
             if mesh is not None:
                 # the new free slots pad the end: deal them out again
                 model = gsp.shard_model(gsp.gsp_interleave(model, n_gs), mesh)

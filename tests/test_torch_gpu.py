@@ -730,3 +730,134 @@ def test_gsp_step_at_world_size_one_matches_single_chip():
         for f in PARAM_FIELDS:
             assert torch.equal(getattr(getattr(fast, t), f),
                                getattr(getattr(gen, t), f)), (t, f)
+
+
+class _PlainBlend:
+    """Routes the blend wrappers to their plain versions on the card."""
+
+    def __enter__(self):
+        self.kernels = blend.blend_fwd_cuda, blend.blend_bwd_cuda
+        blend.blend_fwd_cuda = blend.blend_plain
+        blend.blend_bwd_cuda = blend.blend_bwd_plain
+
+    def __exit__(self, *exc):
+        blend.blend_fwd_cuda, blend.blend_bwd_cuda = self.kernels
+
+
+@pytest.mark.gpu
+def test_example_on_the_card_matches_plain():
+    """examples/render_synthetic: the kernels' render against the plain
+    path on the card (forward tolerance), and a finite centre gradient."""
+    dev = _cuda()
+    from ibgs_tpu_torch.examples import render_synthetic as ex
+    scene = ex.grid_scene(device=dev)
+    k = ex.render(scene)
+    with _PlainBlend():
+        p = ex.render(scene)
+    for f in ("render", "median_depth", "normal", "final_t"):
+        a, b = getattr(k, f), getattr(p, f)
+        assert bool(((a - b).abs() <= 1e-5 + 1e-5 * b.abs()).all()), f
+    assert torch.equal(k.n_contrib, p.n_contrib)
+    assert bool(torch.isfinite(ex.xyz_grad(scene)).all())
+
+
+@pytest.mark.gpu
+def test_replay_on_the_card_matches_plain(tmp_path):
+    """A snapshot dumped by the loop in debug mode on the card (a NaN seed
+    point): the replay's per-term, per-leaf non-finite counts through the
+    kernels equal the plain path's, and name the poisoned row."""
+    dev = _cuda()
+    import dataclasses as dc
+
+    from ibgs_tpu_torch.config import (ModelParams, OptimizationParams,
+                                       PipelineParams)
+    from ibgs_tpu_torch.data.synthetic import make_synthetic_scene
+    from ibgs_tpu_torch.scripts import replay_snapshot
+    from ibgs_tpu_torch.train.loop import train
+    scene = make_synthetic_scene(n_views=4, width=64, height=48, n_gt=600,
+                                 n_seed=300, eval_every=8, device=dev)
+    pts = scene.points.copy()
+    pts[7] = np.nan
+    opt = OptimizationParams(
+        iterations=2, use_color_aggregation=False,
+        single_view_weight_from_iter=10_000,
+        multi_view_weight_from_iter=10_000, number_src_frames=2)
+    with pytest.raises(FloatingPointError, match="snapshot_fw"):
+        train(dc.replace(scene, points=pts), ModelParams(), opt,
+              PipelineParams(debug=True), str(tmp_path), save_iterations=(),
+              test_iterations=(), log_every=1, quiet=True, device=dev)
+    d = dict(np.load(tmp_path / "snapshot_fw.npz"))
+    cam = scene.train_cameras[int(d["cam_idx"])]
+    got = replay_snapshot.replay(d, cam, dev)
+    with _PlainBlend():
+        want = replay_snapshot.replay(d, cam, dev)
+    for t in replay_snapshot.TERMS:
+        a, b = got["terms"][t], want["terms"][t]
+        assert (a["leaves"], a["screen"], a["rows"]) == \
+            (b["leaves"], b["screen"], b["rows"]), t
+        assert a["rows"] == [7], t
+
+
+@pytest.mark.gpu
+def test_prod_run_on_the_card_grows(tmp_path):
+    """A tiny `train_runs prod` on the card: the instance cap grows at the
+    first steps, the capacity doubles at the densify event, one launch of
+    each kernel per step plus the evaluation's 7 forwards."""
+    dev = _cuda()
+    from ibgs_tpu_torch.scripts import train_runs
+    pl = train_runs.plan([
+        "prod", str(tmp_path / "prod"), "--width", "96", "--height", "64",
+        "--gt", "3000", "--seed_pts", "1000", "--iters", "10",
+        "--init_capacity", "1024", "--cap", "256", "--debug", "1",
+        "--log_every", "1", "--device", str(dev)])
+    pl.opt = dataclasses.replace(
+        pl.opt, densify_from_iter=2, densification_interval=4,
+        densify_until_iter=6, single_view_weight_from_iter=30,
+        multi_view_weight_from_iter=30)
+    pl.train["test_iterations"] = (10,)
+    scene = train_runs.build_scene(pl)      # renders its ground truth
+    for k in blend.LAUNCHES:
+        blend.LAUNCHES[k] = 0
+    res, state, _, _ = train_runs.run(pl, scene)
+    torch.cuda.synchronize()
+    assert blend.LAUNCHES == {"blend_fwd": 17, "blend_bwd": 10}
+    kinds = {e["event"]: e for e in res["events"]}
+    assert kinds["instance_cap"]["old"] == 256
+    assert kinds["capacity"]["old"] == 1024
+    assert res["densify"][0]["capacity"] == state.model.capacity > 1024
+    assert res["nonfinite_logged"] == 0
+    assert res["final_train_psnr"] > res["first_train_psnr"]
+
+
+@pytest.mark.gpu
+def test_prod_start_against_jax_capped_ground_truth(tmp_path, capsys,
+                                                    monkeypatch):
+    """The 20k-seed `ref30k` start on the card, twice for the first 100
+    iterations of its schedule: against the port's exact ground truth and
+    against the JAX package's (the render under its `gt_instance_cap` of
+    2^21, which drops the deepest 36% of a view's 3.3M instances).  The capped ground truth
+    holds the logged PSNR at iteration 100 at least 5 dB below the exact
+    one's.  Prints both runs' PSNR at iterations 1 and 100."""
+    import functools
+
+    from ibgs_tpu_torch.data import synthetic
+    from ibgs_tpu_torch.ops.rasterize import RasterConfig
+    from ibgs_tpu_torch.scripts import train_runs
+    dev = _cuda()
+    got = {}
+    for name, gt_cap in (("exact", 0), ("jax_cap", 1 << 21)):
+        monkeypatch.setattr(synthetic, "RasterConfig", functools.partial(
+            RasterConfig, instance_cap=gt_cap))
+        pl = train_runs.plan([
+            "ref30k", str(tmp_path / name), "--log_every", "100",
+            "--bundle", "", "--eval_cap", "0", "--device", str(dev)])
+        # the 30k schedule (its position-lr decay included), stopped at 100
+        pl.opt = dataclasses.replace(pl.opt, iterations=100)
+        pl.train.update(save_iterations=(), test_iterations=(),
+                        checkpoint_iterations=())
+        res, _, _, _ = train_runs.run(pl)
+        got[name] = dict(res["psnr_trajectory"])
+        assert res["nonfinite_logged"] == 0
+    with capsys.disabled():
+        print(f"\nref30k start, logged PSNR at iterations 1 / 100: {got}")
+    assert got["jax_cap"][100] < got["exact"][100] - 5.0
