@@ -83,13 +83,29 @@ Phases, one JSON line each; any failure makes the exit code 1:
              files and PSNR; eval_geometry's chamfer of the eval phase's
              mesh against itself (0) and against a copy shifted by 1e-4
              along x (within 1%)
+  bench      the measurement drivers: `ibgs_tpu_torch.bench` on its four
+             default configs (the random 100k scene and the converged
+             bundle, each at 960x544 and 1920x1088; train mode), the
+             bundle in render mode at both sizes, the 1M random scene at
+             960x544, and the bundle at 960x544 traced (with Python
+             frames); parse_trace on that trace (its device total equal to
+             this script's reading of the file, one "bench_step" label per
+             step); kernel_probe (1.37M synthetic instances) with both
+             kernels held to their plain versions on its first 4 rows of
+             tiles; perf_probe's six stages; gsp_tax on the fast and the
+             generic exchange (equal first losses); gsp_scaling's row at
+             world size 1 (exact, no overflow).  Every value finite, every
+             default config present, and every bench chain of k steps
+             launches exactly k forward blends and, in train mode, k
+             backward blends
   kernels    each kernel with its launches on the serving, train, loop,
-             eval, parallel and drivers paths (the parallel count takes
-             only the band renders, the two GSP steps and the CLI run, not
-             the full-frame and single-chip references they are held to;
-             the drivers count the production run and the bundle's served
-             view, not the replay and example renders held to the plain
-             path)
+             eval, parallel, drivers and bench paths (the parallel count
+             takes only the band renders, the two GSP steps and the CLI
+             run, not the full-frame and single-chip references they are
+             held to; the drivers count the production run and the
+             bundle's served view, not the replay and example renders held
+             to the plain path; the bench count takes the four bench
+             runs, not the probes)
 
 then the nvidia-smi line and, last, {"ok": true, "device": {...}}.
 """
@@ -223,21 +239,20 @@ DRV_REPLAY_STRIDE = 16
 # eval_geometry's shift: far below the 1M surface samples' spacing, so
 # each shifted sample's nearest neighbour is its own original
 DRV_CHAMFER_SHIFT = 1e-4
+# the bench phase: `ibgs_tpu_torch.bench`'s default configs (train mode),
+# the bundle in render mode, the 1M-splat random scene at 960x544
+# (bench.py's reference operating point), the bundle at 960x544 with a
+# Chrome trace of one chain, the probes; each bench chain is BENCH_ITERS
+# steps
+BENCH_ITERS = 5
+BENCH_TRACE_DIR = os.path.join(ROOT, "build", "chip_smoke_bench_trace")
+BENCH_CONFIGS = ["random@960x544", "random@1920x1088", "converged@960x544",
+                 "converged@1920x1088"]
+KP_GATE_TILE_ROWS = 4              # kernel_probe's slice held to plain
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
-
-
-def smi_line():
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60)
-        return out.stdout.strip().splitlines()[0] if out.stdout else ""
-    except (OSError, subprocess.SubprocessError):
-        return ""
 
 
 def parse_ptxas(log):
@@ -265,18 +280,9 @@ def parse_ptxas(log):
 
 
 def cuda_ms(fn, iters, warmup=2):
-    import torch
-    for _ in range(warmup):
-        fn()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
+    """Mean ms of `iters` calls after `warmup` (CUDA events)."""
+    from ibgs_tpu_torch.utils import profiling
+    return profiling.wall_ms(fn, iters, warmup, DEVICE)
 
 
 def host_ms(fn):
@@ -289,35 +295,18 @@ def host_ms(fn):
     return (time.perf_counter() - t0) * 1e3
 
 
-def device_profile(fn, step_ms, top=8):
-    """Device busy time of one call of fn (torch.profiler, CUPTI), its
-    share of `step_ms` (the same call timed without the profiler), and the
-    kernels that take most of it.  Only the device's own events (kernels,
-    copies) are summed: a host op's entry repeats its kernels' time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-    except RuntimeError as e:          # CUPTI unavailable: not measured
-        return {"error": str(e)[:200]}
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    if not events:
-        return {"error": "the profiler recorded no device time"}
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    return {"device_busy_ms": busy_ms,
-            "idle_share": max(0.0, 1.0 - busy_ms / step_ms),
-            "device_launches": sum(e.count for e in events),
-            "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
-                    for e in events[:top]]}
+def device_profile(fn, step_ms, tag, failures, top=8):
+    """Device busy time of one call of fn, its launches and top kernels
+    (`profiling.device_time`), and the share of `step_ms` (the same call
+    timed without the profiler) that the card is idle, as read.  A trace
+    that lost a launch's device event, or busy time above `step_ms`, fails
+    the script."""
+    from ibgs_tpu_torch.utils import profiling
+    out = profiling.idle_share(profiling.device_time(fn, DEVICE, top),
+                               step_ms)
+    if "error" in out:
+        failures.append(f"{tag} profile: {out['error']}")
+    return out
 
 
 def gate_fwd(k_out, p_out, tag, failures):
@@ -377,12 +366,12 @@ def read_jsonl(path):
 
 def trace_device_ms(path):
     """Device time (kernels, copies, sets) of a torch.profiler Chrome
-    trace, and its number of device events."""
+    trace, its number of device events, and the number of host launches
+    whose device event the trace lost."""
+    from ibgs_tpu_torch.utils.profiling import device_events
     with open(path) as f:
-        events = json.load(f).get("traceEvents", [])
-    dev = [e for e in events if e.get("ph") == "X"
-           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    return sum(e.get("dur", 0) for e in dev) / 1e3, len(dev)
+        dev, lost = device_events(json.load(f).get("traceEvents", []))
+    return sum(e.get("dur", 0) for e in dev) / 1e3, len(dev), len(lost)
 
 
 def loop_phase(d, dev, failures):
@@ -514,15 +503,17 @@ def loop_phase(d, dev, failures):
     # colour-only device time per step, from the loop's own trace window
     trace = os.path.join(out, "trace", "trace.json")
     if os.path.exists(trace) and it_ms["color"]:
-        busy, n_dev = trace_device_ms(trace)
+        busy, n_dev, lost = trace_device_ms(trace)
         per_step = busy / p_num
         rec["color_profile"] = {
             "iterations": [p_from, p_from + p_num - 1],
             "device_busy_ms_per_step": per_step,
             "device_events_per_step": n_dev / p_num,
-            "idle_share": (max(0.0, 1.0 - per_step
-                               / it_ms["color"]["median"])
-                           if n_dev else "not measured")}
+            "lost_launches": lost,
+            "idle_share": 1.0 - per_step / it_ms["color"]["median"]}
+        if lost or not n_dev or rec["color_profile"]["idle_share"] < 0:
+            failures.append(f"loop: the trace window's device time "
+                            f"{rec['color_profile']}")
     else:
         rec["color_profile"] = "not measured"
 
@@ -1538,6 +1529,169 @@ def drivers_phase(dev, failures):
     return rec, launches
 
 
+def bench_phase(dev, failures):
+    """The measurement drivers on the card: gsp_tax on both exchange
+    paths and gsp_scaling's row at world size 1; `bench.run` on its
+    default configs (train mode), the bundle in render mode, the 1M random
+    scene and the traced bundle at 960x544; parse_trace on that trace;
+    kernel_probe with both kernels held to their plain versions on its
+    first KP_GATE_TILE_ROWS rows of tiles; perf_probe.  Returns (the
+    phase's record, the launches of the four bench runs)."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    from ibgs_tpu_torch import bench
+    from ibgs_tpu_torch.ops import blend
+    from ibgs_tpu_torch.scripts import (gsp_scaling, gsp_tax, kernel_probe,
+                                        parse_trace, perf_probe)
+
+    t_phase = time.perf_counter()
+    rec = {"phase": "bench"}
+    launches = {k: 0 for k in blend.LAUNCHES}
+    shutil.rmtree(BENCH_TRACE_DIR, ignore_errors=True)
+
+    def finite(x):
+        if isinstance(x, dict):
+            return all(finite(v) for v in x.values())
+        if isinstance(x, (list, tuple)):
+            return all(finite(v) for v in x)
+        return not isinstance(x, float) or math.isfinite(x)
+
+    def run_bench(tag, argv, want_bwd):
+        before = dict(blend.LAUNCHES)
+        t0 = time.perf_counter()
+        out = bench.run(bench.build_parser().parse_args(
+            ["--device", str(dev), "--iters", str(BENCH_ITERS)] + argv))
+        for k in launches:
+            launches[k] += blend.LAUNCHES[k] - before[k]
+        out["detail"]["s"] = time.perf_counter() - t0
+        rec[tag] = out
+        for row in out["detail"]["configs"]:
+            want = {"blend_fwd": BENCH_ITERS,
+                    "blend_bwd": BENCH_ITERS if want_bwd else 0}
+            if row["blend_launches"] != want:
+                failures.append(f"bench {tag} {row['config']} "
+                                f"{row['resolution']}: a chain launched "
+                                f"{row['blend_launches']}, expected {want}")
+            if "profile_error" in row:
+                failures.append(f"bench {tag} {row['config']} "
+                                f"{row['resolution']}: profile "
+                                f"{row['profile_error']}")
+        if not finite(out) or not out["value"] > 0:
+            failures.append(f"bench {tag}: a non-finite value {out}")
+        if "skipped_over_budget" in out["detail"]:
+            failures.append(f"bench {tag}: skipped "
+                            f"{out['detail']['skipped_over_budget']}")
+        return out
+
+    # the sharded step first (see PERF.md §7 q9)
+    rec["gsp_tax"] = {}
+    for generic in (False, True):
+        t0 = time.perf_counter()
+        argv = ["--device", str(dev)] + (["--generic"] if generic else [])
+        recs = gsp_tax.run(gsp_tax.build_parser().parse_args(argv))
+        u, g = recs[0], recs[1]
+        rec["gsp_tax"][g["variant"]] = dict(records=recs,
+                                            s=time.perf_counter() - t0)
+        if not finite(recs) or not abs(u["loss"] - g["loss"]) \
+                <= GSP_LOSS_RTOL * max(abs(u["loss"]), 1.0):
+            failures.append(f"bench: gsp_tax {g['variant']} loss "
+                            f"{g['loss']} against {u['loss']}")
+
+    opened = not dist.is_initialized()
+    t0 = time.perf_counter()
+    try:
+        row = gsp_scaling.rank_row(1, str(dev), True)
+    finally:
+        if opened and dist.is_initialized():
+            dist.destroy_process_group()
+    rec["gsp_scaling"] = dict(row, s=time.perf_counter() - t0)
+    if not (row["exact"] and row["overflow"] == 0 and finite(row)):
+        failures.append(f"bench: gsp_scaling {row}")
+
+    out = run_bench("train", [], True)
+    got = [f"{r['config']}@{r['resolution']}"
+           for r in out["detail"]["configs"]]
+    if got != BENCH_CONFIGS:
+        failures.append(f"bench: configs {got}, expected {BENCH_CONFIGS}")
+    run_bench("render", ["--ckpt", BUNDLE, "--mode", "render"], False)
+    run_bench("random_1m", ["--n", "1000000", "--width", "960", "--height",
+                            "544", "--repeats", "1"], True)
+    run_bench("traced", ["--ckpt", BUNDLE, "--width", "960", "--height",
+                         "544", "--repeats", "1", "--profile",
+                         BENCH_TRACE_DIR], True)
+    rec["launches"] = dict(launches)
+
+    # parse_trace on the converged 960x544 chain: its device total is the
+    # one this script reads from the same file
+    traced = rec["traced"]["detail"]["configs"][0]
+    path = os.path.join(BENCH_TRACE_DIR, f"converged_{traced['resolution']}",
+                        "trace.json")
+    t0 = time.perf_counter()
+    summ = parse_trace.summarize(parse_trace.load_events(path), BENCH_ITERS,
+                                 top_n=12)
+    own_ms, own_n, own_lost = trace_device_ms(path)
+    rec["parse_trace"] = dict(summ, s=time.perf_counter() - t0,
+                              trace_bytes=os.path.getsize(path))
+    if (summ["device_events"] != own_n or not summ["device_ms"] > 0
+            or summ["lost_launches"] or own_lost
+            or abs(summ["device_ms"] * BENCH_ITERS - own_ms)
+            > 1e-9 * own_ms):
+        failures.append(f"bench: parse_trace read {summ['device_ms']} ms x "
+                        f"{BENCH_ITERS} in {summ['device_events']} events "
+                        f"({summ['lost_launches']} lost), the trace holds "
+                        f"{own_ms} ms in {own_n} ({own_lost} lost)")
+    steps = [x for x in summ["labels"] if x[0] == "bench_step"]
+    if not steps or steps[0][3] != BENCH_ITERS:
+        failures.append(f"bench: the trace's bench_step labels {steps}")
+    shutil.rmtree(BENCH_TRACE_DIR, ignore_errors=True)
+
+    # kernel_probe: timed, then both kernels against plain on a slice
+    t0 = time.perf_counter()
+    rec["kernel_probe"] = kernel_probe.run(device=dev)
+    pl = kernel_probe.probe_list(device=dev)
+    cfg = kernel_probe.config()
+    top = pl.rows(KP_GATE_TILE_ROWS)
+    k_out = blend.blend_fwd_cuda(*pl.args(cfg))
+    p_out = blend.blend_plain(*top.args(cfg))
+    torch.cuda.synchronize()
+    gate = {"tile_rows": KP_GATE_TILE_ROWS,
+            "instances": int(top.stop[-1])}
+    gate["fwd"], fwd_err = gate_fwd(k_out.crop(top.Hp, top.Wp), p_out,
+                                    "bench: kernel_probe blend_fwd",
+                                    failures)
+    cts = tuple(torch.ones_like(getattr(k_out, f)) for f in
+                ("color", "normal", "final_t", "buf_depth", "buf_weight"))
+    k1, k2 = (blend.blend_bwd_cuda(*pl.args(cfg), k_out, cts)
+              for _ in range(2))
+    m = gate["instances"]
+    p = blend.blend_bwd_plain(*top.args(cfg), k_out.crop(top.Hp, top.Wp),
+                              tuple(c[:top.Hp] for c in cts))
+    torch.cuda.synchronize()
+    gate["bwd"], bwd_err = gate_bwd(k1[:m], k2[:m], p[:m],
+                                    "bench: kernel_probe blend_bwd",
+                                    failures)
+    gate["max_abs_err"] = {"blend_fwd": fwd_err, "blend_bwd": bwd_err}
+    gate["s"] = time.perf_counter() - t0
+    rec["kernel_probe_gate"] = gate
+    if not finite(rec["kernel_probe"]):
+        failures.append(f"bench: kernel_probe {rec['kernel_probe']}")
+    del pl, top, k_out, p_out, k1, k2, p, cts
+
+    t0 = time.perf_counter()
+    rec["perf_probe"] = perf_probe.run(device=dev)
+    rec["perf_probe_s"] = time.perf_counter() - t0
+    stages = [r for r in rec["perf_probe"]
+              if r["probe"].startswith("stage_")]
+    if [r["probe"] for r in stages] != list(perf_probe.STAGES) or \
+            not finite(stages) or any("profile_error" in r for r in stages):
+        failures.append(f"bench: perf_probe {stages}")
+
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec, launches
+
+
 def main():
     import numpy as np
     import torch
@@ -1570,6 +1724,7 @@ def main():
     # ---- device ----------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
+    from ibgs_tpu_torch.bench import smi_line
     smi = smi_line()
     emit({"phase": "device", "name": kind, "count": count, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -1909,7 +2064,8 @@ def main():
             "ms_per_view_max": total[-1], "depth_prepass_ms": dmed,
             "geo_render_and_fusion_ms": med - dmed,
             "max_memory_allocated": peak,
-            "profile": device_profile(serve_one, med)}
+            "profile": device_profile(serve_one, med,
+                                      f"timing serve {wh}", failures)}
 
     train_ms = {}
     for wh in SIZES:
@@ -1932,7 +2088,8 @@ def main():
                               for _ in range(STEP_REPEATS)])
         train_ms[f"{wh[0]}x{wh[1]}"] = {
             "ms_per_step": times, "max_memory_allocated": peak,
-            "profile": device_profile(train_one, times["median"])}
+            "profile": device_profile(train_one, times["median"],
+                                      f"timing train {wh}", failures)}
     emit({"phase": "timing", "blend_fwd": fwd_cases, "blend_bwd": bwd_cases,
           "tile_ranges": {f"{wh[0]}x{wh[1]}": range_lengths(preps[wh])
                           for wh in SIZES},
@@ -1962,6 +2119,11 @@ def main():
     rec, drv_launches = drivers_phase(dev, failures)
     emit(rec)
 
+    # ---- bench: the north-star step, the probes, the trace parser ---------
+    torch.cuda.empty_cache()
+    rec, bench_launches = bench_phase(dev, failures)
+    emit(rec)
+
     # ---- kernels -----------------------------------------------------------
     size0 = f"{SIZES[0][0]}x{SIZES[0][1]}"
     fwd_main = next(c for c in fwd_cases
@@ -1974,7 +2136,8 @@ def main():
                             "loop_resume": resume_launches[k],
                             "eval": eval_launches[k],
                             "parallel": par_launches[k],
-                            "drivers": drv_launches[k]}
+                            "drivers": drv_launches[k],
+                            "bench": bench_launches[k]}
                         for k in blend.LAUNCHES}
     emit({"phase": "kernels", "launches": launches_by_path})
     for k, by_path in launches_by_path.items():
@@ -1986,6 +2149,8 @@ def main():
             failures.append(f"{k} was not launched on the parallel path")
         if by_path["drivers"] == 0:
             failures.append(f"{k} was not launched on the drivers path")
+        if by_path["bench"] == 0:
+            failures.append(f"{k} was not launched on the bench path")
     if serve_launches["blend_fwd"] == 0:
         failures.append("blend_fwd was not launched on the serving path")
     if eval_launches["blend_fwd"] == 0:

@@ -41,16 +41,17 @@ def _timeout(timeout_s: float) -> datetime.timedelta:
 
 def _init(device, init_method: str, world: int, rank: int,
           timeout_s: float, store=None):
+    """init_process_group on `device`'s backend.  On a card the rank's
+    card is made current and NCCL starts at the group's first collective
+    (no `device_id`, so DeviceMesh builds its groups with new_group, not
+    by splitting an eager communicator)."""
     dev = torch.device(device)
-    kw = {}
     if dev.type == "cuda":
-        local = int(os.environ.get("LOCAL_RANK",
-                                   rank % torch.cuda.device_count()))
-        torch.cuda.set_device(local)
-        kw["device_id"] = torch.device("cuda", local)
+        torch.cuda.set_device(int(os.environ.get(
+            "LOCAL_RANK", rank % torch.cuda.device_count())))
     dist.init_process_group(backend_for(dev), init_method=init_method,
                             store=store, world_size=world, rank=rank,
-                            timeout=_timeout(timeout_s), **kw)
+                            timeout=_timeout(timeout_s))
 
 
 def initialize(coordinator_address: Optional[str] = None,

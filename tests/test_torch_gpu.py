@@ -861,3 +861,30 @@ def test_prod_start_against_jax_capped_ground_truth(tmp_path, capsys,
     with capsys.disabled():
         print(f"\nref30k start, logged PSNR at iterations 1 / 100: {got}")
     assert got["jax_cap"][100] < got["exact"][100] - 5.0
+
+
+@pytest.mark.gpu
+def test_profiler_sessions_keep_every_launch(tmp_path):
+    """A sub-millisecond call of 8 launches lost some or all of its device
+    events in a few percent of bare torch.profiler sessions on the card;
+    `device_time` and `trace` keep all 8 in each of 40 / 10 sessions."""
+    import json
+
+    from ibgs_tpu_torch.utils import profiling
+    dev = _cuda()
+    x = torch.ones(2048, 2048, device=dev)
+
+    def small():
+        for _ in range(8):
+            x.mul_(1.0000001)
+
+    for _ in range(40):
+        r = profiling.device_time(small, dev)
+        assert r.get("device_launches") == 8, r
+    for i in range(10):
+        with profiling.trace(str(tmp_path / str(i))):
+            small()
+        with open(tmp_path / str(i) / "trace.json") as f:
+            got, lost = profiling.device_events(
+                json.load(f)["traceEvents"])
+        assert (len(got), lost) == (8, [])
