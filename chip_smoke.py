@@ -17,11 +17,20 @@ Phases, one JSON line each; any failure makes the exit code 1:
              modes render_geo and colour, with the cotangents of one real
              backward of the training objective and one seeded random
              set; two kernel runs bit-identical
+  warp       both warp kernels (csrc/warp.cu) against their plain versions
+             at 960x544 and 1920x1088 on the median buffers, sources and
+             cotangents of that real render_geo backward and on one seeded
+             random set of cotangents: forward 1e-5 abs + 1e-5 rel,
+             backward per gradient 1e-4 x its largest value + 1e-7,
+             non-finite values in the same places, two backward runs
+             bit-identical
   serve      EvalRenderer.render_one at 960x544 and 1920x1088: finite
-             outputs, exactly 5 forward and 0 backward launches per view
+             outputs, exactly 5 blend forwards, 1 warp forward and no
+             backward per view
   train      10 IBGS training steps at 960x544 (render_geo + aggregation,
              iteration 13000), 1 launch of each kernel per step, finite,
-             loss falling; then 1 colour-only step (iteration 5000)
+             loss falling; then 1 colour-only step (iteration 5000): 1
+             launch of each blend kernel and no warp
   timing     kernel / plain / serving / train-step times (CUDA events and
              host clock), each kernel case's share of its bound, the tile
              range lengths (p50, p99, max) per size, peak memory, device
@@ -34,7 +43,8 @@ Phases, one JSON line each; any failure makes the exit code 1:
              resume from it for iteration 301 (depth-cache rebuild).
              Finite losses, no non-finite gradient, a densify event that
              changes the alive count, a falling loss, a bit-exact
-             checkpoint, exactly the kernel launches the schedule implies;
+             checkpoint, exactly the kernel launches the schedule implies
+             (the warp in each render_geo step and evaluation render);
              the native library's exact KNN against the device KNN on the
              seed cloud
   eval       the evaluation path on the loop's model directory (its PLY
@@ -54,11 +64,13 @@ Phases, one JSON line each; any failure makes the exit code 1:
              world size 1: the bundle at 960x544 as 2 bands of 272 rows
              and at 1920x1088 as 4, each through `rasterize`'s viewport
              band with the warp, stitched against the full frame; both
-             kernels held to their plain versions on the last 960x544
-             band (row0 272); `gsp_full_train_step` on the train phase's
-             step on its fast path and its generic exchange against the
-             single-chip step (losses, post-Adam parameters, overflow 0,
-             the two paths bit-identical), ms per step of all three; then
+             blend kernels and both warp kernels held to their plain
+             versions on the last 960x544 band (row0 272), whose loss
+             reads the warped images; `gsp_full_train_step` on the train
+             phase's step on its fast path and its generic exchange
+             against the single-chip step (losses, post-Adam parameters,
+             overflow 0, the two paths bit-identical), ms per step of all
+             three; then
              `python -m ibgs_tpu_torch.train --gsp_shards 1` (in process,
              the bundle's 5 views as its scene) for an 80-iteration cut
              with densify events and an opacity reset: the evaluation
@@ -96,9 +108,10 @@ Phases, one JSON line each; any failure makes the exit code 1:
              generic exchange (equal first losses); gsp_scaling's row at
              world size 1 (exact, no overflow).  Every value finite, every
              default config present, and every bench chain of k steps
-             launches exactly k forward blends and, in train mode, k
-             backward blends
-  kernels    each kernel with its launches on the serving, train, loop,
+             launches exactly k blend and k warp forwards and, in train
+             mode, k of each backward
+  kernels    each kernel (blend_fwd, blend_bwd, warp_fwd, warp_bwd) with
+             its launches on the serving, train, loop,
              eval, parallel, drivers and bench paths (the parallel count
              takes only the band renders, the two GSP steps and the CLI
              run, not the full-frame and single-chip references they are
@@ -146,6 +159,12 @@ OPS_PER_PAIR = 17
 # (plus the normal and buffer terms), each plus the 15 adds that sum the
 # terms over the tile's pixels
 OPS_PER_CONTRIB_PAIR = {0: 63, 1: 94}
+# float ops per (buffer entry, source) pair, counted from csrc/warp.cu:
+# forward projection 20, 1/(qz + eps) 2, pu / pv 6, w_eff 1, floors and
+# fractions 4, bilinear weights 6, three channels 21, sums 7; the backward
+# recomputes the first 39 and adds 78 for the channels' gradient terms, 2
+# for dbw, 12 for dq/dd, 10 for the projection Jacobian and 4 for dbd
+WARP_OPS_PER_PAIR = {"warp_fwd": 67, "warp_bwd": 145}
 MODE_NAMES = {0: "color", 1: "render_geo", 2: "depth_only"}
 FIELDS = ("color", "normal", "final_t", "n_contrib", "buf_depth",
           "buf_weight", "buf_contrib")
@@ -255,6 +274,36 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+def launch_counts():
+    """Every kernel wrapper's launch count: the blend's and the warp's."""
+    from ibgs_tpu_torch.ops import blend, epilogue
+    return {**blend.LAUNCHES, **epilogue.LAUNCHES}
+
+
+def reset_launch_counts():
+    from ibgs_tpu_torch.ops import blend, epilogue
+    for counts in (blend.LAUNCHES, epilogue.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def launches_since(before):
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in before}
+
+
+def kernel_launches(blend_fwd, blend_bwd, warp_fwd, warp_bwd):
+    return {"blend_fwd": blend_fwd, "blend_bwd": blend_bwd,
+            "warp_fwd": warp_fwd, "warp_bwd": warp_bwd}
+
+
+def geo_steps(opt, n_train, first, last):
+    """Render_geo steps among iterations first..last of the loop (its
+    geometry starts after single_view_weight_from_iter - 2·views)."""
+    geo_from = opt.single_view_weight_from_iter - 2 * n_train
+    return max(0, last - max(first - 1, geo_from))
+
+
 def parse_ptxas(log):
     """Per-kernel registers / shared memory / spills from `-Xptxas -v`."""
     out, cur = {}, None
@@ -354,6 +403,61 @@ def gate_bwd(k1, k2, p, tag, failures):
             "bit_identical_repeat": same}, float(err.max())
 
 
+def warp_args(recorded):
+    """(the six tensor inputs, the intrinsics, the two cotangents) of a
+    recorded warp backward call, detached."""
+    *tensors, intr, g_wsc, g_wsum = recorded
+    return (tuple(t.detach() for t in tensors), tuple(intr),
+            (g_wsc.detach(), g_wsum.detach()))
+
+
+def gate_warp_pair(args, intr, cts, tag, failures):
+    """Both warp kernels against their plain versions on one set of
+    inputs: the forward's wsc and ws within TOL_ABS + TOL_REL·|plain| (the
+    B-sum's order differs), the backward's dbd and dbw each within
+    BWD_TOL_REL x its largest plain value + BWD_TOL_ABS, non-finite values
+    in the same places, two backward runs bit-identical.  Returns (record,
+    {"warp_fwd": max abs error, "warp_bwd": max abs error})."""
+    import torch
+    from ibgs_tpu_torch.ops import epilogue
+    k = epilogue.warp_fwd_cuda(*args, *intr)
+    p = epilogue.warp_views_plain(*args, *intr)
+    k1 = epilogue.warp_bwd_cuda(*args, intr, *cts)
+    k2 = epilogue.warp_bwd_cuda(*args, intr, *cts)
+    pb = epilogue.warp_views_bwd_plain(*args, intr, *cts)
+    torch.cuda.synchronize()
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    rec, errs = {}, {"warp_fwd": 0.0, "warp_bwd": 0.0}
+    for kernel, names, got, want in (
+            ("warp_fwd", ("wsum_color", "wsum"), k, p),
+            ("warp_bwd", ("dbd", "dbw"), k1, pb)):
+        for i, (name, a, b) in enumerate(zip(names, got, want)):
+            fin = torch.isfinite(b)
+            same_nonfinite = (torch.equal(torch.isfinite(a), fin)
+                              and torch.equal(torch.isnan(a), torch.isnan(b)))
+            err = (a - b).abs()[fin]
+            e = float(err.max()) if err.numel() else 0.0
+            scale = float(b[fin].abs().max()) if err.numel() else 0.0
+            r = {"max_abs_err": e, "max_abs_plain": scale,
+                 "nonfinite": int((~fin).sum()),
+                 "bit_equal_plain": torch.equal(bits(a), bits(b))}
+            if kernel == "warp_fwd":
+                ok = bool((err <= TOL_ABS + TOL_REL * b[fin].abs()).all())
+            else:
+                ok = e <= BWD_TOL_REL * scale + BWD_TOL_ABS
+                r["bit_identical_repeat"] = torch.equal(bits(a), bits(k2[i]))
+                ok = ok and r["bit_identical_repeat"]
+            if not (ok and same_nonfinite):
+                failures.append(f"{tag} {kernel} {name}: {r}, non-finite "
+                                f"in the same places {same_nonfinite}")
+            rec[name] = r
+            errs[kernel] = max(errs[kernel], e)
+    return rec, errs
+
+
 def median_range(xs):
     xs = sorted(xs)
     return {"median": xs[len(xs) // 2], "min": xs[0], "max": xs[-1]}
@@ -386,13 +490,8 @@ def loop_phase(d, dev, failures):
                                        PipelineParams)
     from ibgs_tpu_torch.core import knn
     from ibgs_tpu_torch.models.gaussians import init_from_points
-    from ibgs_tpu_torch.ops import blend
     from ibgs_tpu_torch.train import checkpoint, loop
     from ibgs_tpu_torch.utils import native
-
-    def reset_launches():
-        for k in blend.LAUNCHES:
-            blend.LAUNCHES[k] = 0
 
     wh = SIZES[0]
     scene = convert.bundle_train_scene(d, wh[0], wh[1], dev)
@@ -439,7 +538,7 @@ def loop_phase(d, dev, failures):
     p_from, p_num = LOOP_PROFILE
     out = LOOP_DIR
     shutil.rmtree(out, ignore_errors=True)
-    reset_launches()
+    reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state, _ = loop.train(
@@ -451,7 +550,7 @@ def loop_phase(d, dev, failures):
     torch.cuda.synchronize()
     rec["run_s"] = time.perf_counter() - t0
     rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-    run_launches = dict(blend.LAUNCHES)
+    run_launches = launch_counts()
 
     log = read_jsonl(os.path.join(out, "train_log.jsonl"))
     events = read_jsonl(os.path.join(out, "densify_log.jsonl"))
@@ -490,8 +589,13 @@ def loop_phase(d, dev, failures):
     if not last < first:
         failures.append(f"loop: mean image_loss of the last 20 iterations "
                         f"{last} is not below the first 20's {first}")
-    want = {"blend_fwd": iters + LOOP_EVAL_VIEWS * sum(
-        1 for i in LOOP_TEST_ITERS if i <= iters), "blend_bwd": iters}
+    # one blend per step and evaluation render, its backward per step; the
+    # warp in every render_geo step (forward and backward) and evaluation
+    # render (forward)
+    evals = LOOP_EVAL_VIEWS * sum(1 for i in LOOP_TEST_ITERS if i <= iters)
+    geo = geo_steps(opt, n_train, 1, iters)
+    want = kernel_launches(iters + evals, iters, geo + evals, geo)
+    rec["launches"], rec["launches_expected"] = run_launches, want
     if run_launches != want:
         failures.append(f"loop: kernel launches {run_launches}, expected "
                         f"{want}")
@@ -541,7 +645,7 @@ def loop_phase(d, dev, failures):
 
     # the resume: iteration 301 from the checkpoint, after the depth-cache
     # rebuild (one depth_only forward per view)
-    reset_launches()
+    reset_launch_counts()
     resume_opt = OptimizationParams(**dict(LOOP_SCHEDULE,
                                            iterations=iters + 1))
     t0 = time.perf_counter()
@@ -550,7 +654,7 @@ def loop_phase(d, dev, failures):
         os.path.join(out, "resume"), save_iterations=(), test_iterations=(),
         start_checkpoint=ck, quiet=True, seed=24, log_every=1, device=dev)
     torch.cuda.synchronize()
-    resume_launches = dict(blend.LAUNCHES)
+    resume_launches = launch_counts()
     rlog = read_jsonl(os.path.join(out, "resume", "train_log.jsonl"))
     rec["resume"] = {
         "s": time.perf_counter() - t0, "launches": resume_launches,
@@ -563,9 +667,11 @@ def loop_phase(d, dev, failures):
             or not all(math.isfinite(rlog[0][k]) for k in loop.LOSS_KEYS)
             or rlog[0]["nonfinite_grads"]):
         failures.append(f"loop: resumed step {rec['resume']['logged']}")
-    if resume_launches != {"blend_fwd": 1 + n_train, "blend_bwd": 1}:
+    geo = geo_steps(opt, n_train, iters + 1, iters + 1)
+    want = kernel_launches(1 + n_train, 1, geo, geo)
+    if resume_launches != want:
         failures.append(f"loop: resume launches {resume_launches}, expected "
-                        f"{1 + n_train} blend_fwd and 1 blend_bwd")
+                        f"{want}")
     if rec["resume"]["depth_cache_views"] != n_train:
         failures.append("loop: the depth cache was not rebuilt for every "
                         "view")
@@ -593,7 +699,6 @@ def eval_phase(d, dev, failures):
                                        PipelineParams)
     from ibgs_tpu_torch.eval import render_driver, tsdf, video, viewer
     from ibgs_tpu_torch.eval.metrics import evaluate_model_dir, ssim
-    from ibgs_tpu_torch.ops import blend
     from ibgs_tpu_torch.ops.rasterize import RasterConfig
     from ibgs_tpu_torch.renderer import (render_depth_view, render_view,
                                          source_views_from_stacks)
@@ -650,8 +755,7 @@ def eval_phase(d, dev, failures):
             fused["marching_ms"] = (time.perf_counter() - t0) * 1e3
             return out
 
-    for k in blend.LAUNCHES:
-        blend.LAUNCHES[k] = 0
+    reset_launch_counts()
     render_driver._save_png = save_png
     tsdf.TSDFVolume, real_volume = RecordingVolume, tsdf.TSDFVolume
     t0 = time.perf_counter()
@@ -823,7 +927,7 @@ def eval_phase(d, dev, failures):
     thread = threading.Thread(target=client, daemon=True)
     viewer_launches = {}
     try:
-        before = dict(blend.LAUNCHES)
+        before = launch_counts()
         t0 = time.perf_counter()
         thread.start()
         while "bytes" not in frame and time.perf_counter() - t0 \
@@ -831,7 +935,7 @@ def eval_phase(d, dev, failures):
             viewer.serve_once(render_fn, verify="ok", device=dev)
             time.sleep(0.001)
         thread.join(timeout=VIEWER_TIMEOUT_S)
-        viewer_launches = {k: blend.LAUNCHES[k] - before[k] for k in before}
+        viewer_launches = launches_since(before)
     finally:
         viewer.shutdown()
     ok = (not thread.is_alive() and reply.get("verify") == "ok"
@@ -841,7 +945,7 @@ def eval_phase(d, dev, failures):
                      "launches": viewer_launches}
     if not ok:
         failures.append("eval: the viewer frame did not come back intact")
-    launches = dict(blend.LAUNCHES)
+    launches = launch_counts()
 
     # the bundle model's source depths at the ring cameras against the
     # bundle's cached ones (uncounted)
@@ -856,10 +960,12 @@ def eval_phase(d, dev, failures):
         agree.append(round(float(ok_px.sum()) / max(int(has.sum()), 1), 4))
     rec["src_depth_agree_1pct_ring"] = agree
 
+    # each rendered view: its source depths and one render_geo render with
+    # the warp; the viewer frame: one render_geo render
     per_view = opt.number_src_frames + 1
-    want = {"blend_fwd": per_view * (
-        (EVAL_FPS_LOOPS + 1) * n_test + n_test + 2 * n_train
-        + EVAL_VIDEO_FRAMES) + 1, "blend_bwd": 0}
+    views = ((EVAL_FPS_LOOPS + 1) * n_test + n_test + 2 * n_train
+             + EVAL_VIDEO_FRAMES)
+    want = kernel_launches(per_view * views + 1, 0, views + 1, 0)
     rec["launches"], rec["launches_expected"] = launches, want
     if launches != want:
         failures.append(f"eval: kernel launches {launches}, expected {want}")
@@ -884,6 +990,7 @@ def parallel_phase(d, dev, scenes, inputs, opt, rcfg, failures):
     import numpy as np
     import torch
     from ibgs_tpu_torch import convert
+    from ibgs_tpu_torch.config import OptimizationParams
     from ibgs_tpu_torch.data import dataset
     from ibgs_tpu_torch.models.gaussians import PARAM_FIELDS, lr_tree
     from ibgs_tpu_torch.ops import blend
@@ -896,13 +1003,10 @@ def parallel_phase(d, dev, scenes, inputs, opt, rcfg, failures):
     # the launches of the parallel path: counted around the band renders,
     # the GSP steps and the CLI run only, never around the full-frame and
     # single-chip references
-    launches = {k: 0 for k in blend.LAUNCHES}
-
-    def since(before):
-        return {k: blend.LAUNCHES[k] - before[k] for k in before}
+    launches = {k: 0 for k in launch_counts()}
 
     def count(before):
-        for k, v in since(before).items():
+        for k, v in launches_since(before).items():
             launches[k] += v
 
     # ---- bands: stitched against the full frame ---------------------------
@@ -917,14 +1021,14 @@ def parallel_phase(d, dev, scenes, inputs, opt, rcfg, failures):
             viewport_row0=row0, viewport_rows=rows)
 
     rec["bands"] = {}
-    band_before = dict(blend.LAUNCHES)
+    band_before = launch_counts()
     for wh in SIZES:
         sc, src = scenes[wh], inputs[wh][1]
         n_bands = wh[1] // PAR_BAND_ROWS
         with torch.no_grad():
             full = render(sc["model"], sc["cam"], src)
             torch.cuda.synchronize()
-            before = dict(blend.LAUNCHES)
+            before = launch_counts()
             bands = [render(sc["model"], sc["cam"], src, b * PAR_BAND_ROWS,
                             PAR_BAND_ROWS) for b in range(n_bands)]
             torch.cuda.synchronize()
@@ -949,7 +1053,8 @@ def parallel_phase(d, dev, scenes, inputs, opt, rcfg, failures):
                                 f"from the full frame")
         rec["bands"][f"{wh[0]}x{wh[1]}"] = r
 
-    # the last 960x544 band with a backward: its blend arguments (row0 272)
+    # the last 960x544 band with a backward through the blend and the warp:
+    # the kernels' arguments (row0 272)
     wh = SIZES[0]
     sc, src = scenes[wh], inputs[wh][1]
     row0 = wh[1] - PAR_BAND_ROWS
@@ -957,27 +1062,21 @@ def parallel_phase(d, dev, scenes, inputs, opt, rcfg, failures):
     leaves = dataclasses.replace(model, params=type(model.params)(**{
         k: getattr(model.params, k).detach().requires_grad_(True)
         for k in PARAM_FIELDS}))
-    recorded, kernel = [], blend.blend_bwd_cuda
-
-    def recorder(*a):
-        recorded.append(a)
-        return kernel(*a)
-    blend.blend_bwd_cuda = recorder
-    before = dict(blend.LAUNCHES)
-    try:
+    with recording() as recorded:
+        before = launch_counts()
         res = render(leaves, sc["cam"], src, row0, PAR_BAND_ROWS)
-        loss = res.render.sum() + (res.median_depth ** 2).mean()
+        loss = (res.render.sum() + (res.median_depth ** 2).mean()
+                + res.ibr.warped_image.abs().mean())
         torch.autograd.grad(loss, [leaves.params.xyz, leaves.params.sh_dc])
-    finally:
-        blend.blend_bwd_cuda = kernel
-    torch.cuda.synchronize()
-    count(before)
+        torch.cuda.synchronize()
+        count(before)
     # the band renders alone: the full frames are counted out
     rec["bands_launches"] = {k: launches[k] for k in launches}
-    want = {"blend_fwd": sum(w[1] // PAR_BAND_ROWS for w in SIZES) + 1,
-            "blend_bwd": 1}
-    full_frames = {k: v - launches[k] for k, v in since(band_before).items()}
-    if full_frames != {"blend_fwd": len(SIZES), "blend_bwd": 0}:
+    n_bands = sum(w[1] // PAR_BAND_ROWS for w in SIZES)
+    want = kernel_launches(n_bands + 1, 1, n_bands + 1, 1)
+    full_frames = {k: v - launches[k]
+                   for k, v in launches_since(band_before).items()}
+    if full_frames != kernel_launches(len(SIZES), 0, len(SIZES), 0):
         failures.append(f"parallel: full-frame reference launches "
                         f"{full_frames}")
     if rec["bands_launches"] != want:
@@ -1016,7 +1115,7 @@ def parallel_phase(d, dev, scenes, inputs, opt, rcfg, failures):
             st, fn = gsp_path(2 * n_inst, n_inst)
         holder = {}
         torch.cuda.synchronize()
-        before = dict(blend.LAUNCHES)
+        before = launch_counts()
         st, aux = fn(st)
         torch.cuda.synchronize()
         first[name] = (st, aux)
@@ -1029,7 +1128,7 @@ def parallel_phase(d, dev, scenes, inputs, opt, rcfg, failures):
                                     for _ in range(STEP_REPEATS)])
         torch.cuda.synchronize()
         if name != "single":              # the reference is counted out
-            for k, v in since(before).items():
+            for k, v in launches_since(before).items():
                 gsp_launches[k] += v
             count(before)
     del holder
@@ -1076,15 +1175,16 @@ def parallel_phase(d, dev, scenes, inputs, opt, rcfg, failures):
         failures.append("parallel: the fast and generic exchange paths "
                         "differ (first moments = 0.1 x gradient)")
     rec["gsp_launches"] = gsp_launches
-    want = {"blend_fwd": 2 * (1 + STEP_REPEATS),
-            "blend_bwd": 2 * (1 + STEP_REPEATS)}
+    n_steps = 2 * (1 + STEP_REPEATS)      # render_geo steps
+    want = kernel_launches(n_steps, n_steps, n_steps, n_steps)
     if rec["gsp_launches"] != want:
         failures.append(f"parallel: gsp launches {rec['gsp_launches']}, "
                         f"expected {want}")
     del first, one_s, one, fast, gen, mesh
 
     # ---- the loop through the CLI on a 1 x 1 mesh ---------------------------
-    before = dict(blend.LAUNCHES)
+    n_train = convert.bundle_train_scene(d, wh[0], wh[1], dev).n_train
+    before = launch_counts()
     out = PAR_LOOP_DIR
     shutil.rmtree(out, ignore_errors=True)
     iters = PAR_LOOP_SCHEDULE["iterations"]
@@ -1109,7 +1209,7 @@ def parallel_phase(d, dev, scenes, inputs, opt, rcfg, failures):
     finally:
         dataset.load_scene = load_scene
     torch.cuda.synchronize()
-    loop_launches = since(before)
+    loop_launches = launches_since(before)
     count(before)
     log = read_jsonl(os.path.join(out, "train_log.jsonl"))
     events = read_jsonl(os.path.join(out, "densify_log.jsonl"))
@@ -1120,8 +1220,11 @@ def parallel_phase(d, dev, scenes, inputs, opt, rcfg, failures):
     rec["loop"] = {"s": time.perf_counter() - t0, "exit_code": code,
                    "schedule": PAR_LOOP_SCHEDULE, "launches": loop_launches,
                    "densify": events, "eval_psnr": psnr}
-    want = {"blend_fwd": iters + LOOP_EVAL_VIEWS * len(PAR_LOOP_EVALS),
-            "blend_bwd": iters}
+    evals = LOOP_EVAL_VIEWS * len(PAR_LOOP_EVALS)
+    geo = geo_steps(OptimizationParams(**PAR_LOOP_SCHEDULE), n_train, 1,
+                    iters)
+    want = kernel_launches(iters + evals, iters, geo + evals, geo)
+    rec["loop"]["launches_expected"] = want
     if code != 0 or [m["iter"] for m in log] != [1]:
         failures.append(f"parallel: the CLI run exited {code} with "
                         f"{len(log)} logged iterations")
@@ -1186,7 +1289,7 @@ def parallel_phase(d, dev, scenes, inputs, opt, rcfg, failures):
             k_out, p_out, f"parallel: band blend_fwd {MODE_NAMES[mode]}",
             failures)
         fwd_err = max(fwd_err, e)
-    *head, saved, cts, r0 = recorded[0]
+    *head, saved, cts, r0 = recorded["blend_bwd"][0]
     saved = type(saved)(*(getattr(saved, f).detach() for f in FIELDS))
     cts = tuple(c.detach() for c in cts)
     head[0] = head[0].detach()
@@ -1198,23 +1301,62 @@ def parallel_phase(d, dev, scenes, inputs, opt, rcfg, failures):
         k1, k2, p, "parallel: band blend_bwd render_geo", failures)
     if r0 != row0:
         failures.append(f"parallel: the band's backward ran at row0 {r0}")
-    kc["max_abs_err"] = {"blend_fwd": fwd_err, "blend_bwd": bwd_err}
+    # the warp on the same band: its rays start at image row 272
+    wa, intr, wcts = warp_args(recorded["warp_bwd"][0])
+    first_row = float(wa[5][0, 0]) * intr[1] + intr[3]
+    if len(recorded["warp_fwd"]) != 1 or abs(first_row - row0) > 1e-3:
+        failures.append(f"parallel: the band's warp ran "
+                        f"{len(recorded['warp_fwd'])} times, its rays from "
+                        f"row {first_row}")
+    kc["warp"], warp_err = gate_warp_pair(wa, intr, wcts,
+                                          "parallel: band warp", failures)
+    kc["max_abs_err"] = {"blend_fwd": fwd_err, "blend_bwd": bwd_err,
+                         **warp_err}
     rec["band_kernels"] = kc
     return rec, launches
 
 
 @contextlib.contextmanager
 def plain_blend():
-    """Route the blend wrappers to their plain versions on the card, so a
-    driver runs its plain path on the same device and inputs."""
-    from ibgs_tpu_torch.ops import blend
-    kernels = blend.blend_fwd_cuda, blend.blend_bwd_cuda
+    """Route the blend and warp wrappers to their plain versions on the
+    card, so a driver runs its plain path on the same device and inputs."""
+    from ibgs_tpu_torch.ops import blend, epilogue
+    kernels = (blend.blend_fwd_cuda, blend.blend_bwd_cuda,
+               epilogue.warp_fwd_cuda, epilogue.warp_bwd_cuda)
     blend.blend_fwd_cuda, blend.blend_bwd_cuda = (blend.blend_plain,
                                                   blend.blend_bwd_plain)
+    epilogue.warp_fwd_cuda = epilogue.warp_views_plain
+    epilogue.warp_bwd_cuda = epilogue.warp_views_bwd_plain
     try:
         yield
     finally:
-        blend.blend_fwd_cuda, blend.blend_bwd_cuda = kernels
+        (blend.blend_fwd_cuda, blend.blend_bwd_cuda, epilogue.warp_fwd_cuda,
+         epilogue.warp_bwd_cuda) = kernels
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the arguments of every blend backward, warp forward and warp
+    backward launch while the block runs: yields {name: [args, ...]}."""
+    from ibgs_tpu_torch.ops import blend, epilogue
+    seen = {"blend_bwd": [], "warp_fwd": [], "warp_bwd": []}
+    slots = ((blend, "blend_bwd_cuda", "blend_bwd"),
+             (epilogue, "warp_fwd_cuda", "warp_fwd"),
+             (epilogue, "warp_bwd_cuda", "warp_bwd"))
+    kernels = [getattr(mod, attr) for mod, attr, _ in slots]
+
+    def recorder(fn, name):
+        def call(*a):
+            seen[name].append(a)
+            return fn(*a)
+        return call
+    for (mod, attr, name), fn in zip(slots, kernels):
+        setattr(mod, attr, recorder(fn, name))
+    try:
+        yield seen
+    finally:
+        for (mod, attr, _), fn in zip(slots, kernels):
+            setattr(mod, attr, fn)
 
 
 def drivers_phase(dev, failures):
@@ -1236,7 +1378,6 @@ def drivers_phase(dev, failures):
     from ibgs_tpu_torch.models import gaussians
     from ibgs_tpu_torch.models.aggregation import (ColorFusionResidualNet,
                                                    init_fusion_net)
-    from ibgs_tpu_torch.ops import blend
     from ibgs_tpu_torch.ops.rasterize import RasterConfig, prepare
     from ibgs_tpu_torch.renderer import source_views_from_stacks
     from ibgs_tpu_torch.scripts import eval_geometry, replay_snapshot
@@ -1298,15 +1439,14 @@ def drivers_phase(dev, failures):
         return holder["m"]
 
     native.knn_mean_sq_dist_3, gaussians.grow_capacity = timed_knn, timed_grow
-    for k in blend.LAUNCHES:
-        blend.LAUNCHES[k] = 0
+    reset_launch_counts()
     try:
         with contextlib.redirect_stdout(sys.stderr):
             res, state, stacks, _ = train_runs.run(pl, scene)
     finally:
         native.knn_mean_sq_dist_3, gaussians.grow_capacity = knn, grow
     torch.cuda.synchronize()
-    run_launches = dict(blend.LAUNCHES)
+    run_launches = launch_counts()
 
     log = read_jsonl(os.path.join(out, "train_log.jsonl"))
     events = read_jsonl(os.path.join(out, "densify_log.jsonl"))
@@ -1361,7 +1501,10 @@ def drivers_phase(dev, failures):
     if not log[-1]["psnr"] > log[0]["psnr"]:
         failures.append(f"drivers: PSNR {log[0]['psnr']} at iteration 1, "
                         f"{log[-1]['psnr']} at {DRV_ITERS}")
-    want = {"blend_fwd": DRV_ITERS + DRV_EVAL_VIEWS, "blend_bwd": DRV_ITERS}
+    geo = geo_steps(pl.opt, scene.n_train, 1, DRV_ITERS)
+    want = kernel_launches(DRV_ITERS + DRV_EVAL_VIEWS, DRV_ITERS,
+                           geo + DRV_EVAL_VIEWS, geo)
+    prod["launches_expected"] = want
     if run_launches != want:
         failures.append(f"drivers: production run launches {run_launches}, "
                         f"expected {want}")
@@ -1414,10 +1557,10 @@ def drivers_phase(dev, failures):
     ev = EvalRenderer(sc["model"], net, sc["images"], sc["w2v"],
                       sc["centers"], sc["train_cameras"], OptimizationParams(),
                       RasterConfig(staircase_cull=True), device=dev)
-    before = dict(blend.LAUNCHES)
+    before = launch_counts()
     o = ev.render_one(sc["cam"], list(range(sc["count"])))
     torch.cuda.synchronize()
-    serve_launches = {k: blend.LAUNCHES[k] - before[k] for k in before}
+    serve_launches = launches_since(before)
     finite = all(bool(torch.isfinite(v).all()) for v in o.values()
                  if torch.is_tensor(v) and v.is_floating_point())
     rec["bundle"] = {"bytes": os.path.getsize(bundle_path),
@@ -1425,11 +1568,11 @@ def drivers_phase(dev, failures):
                      "src_count": int(d["src_count"]), "finite": finite,
                      "launches": serve_launches,
                      "n_instances": o["n_instances"]}
-    if not finite or serve_launches != {"blend_fwd": 5, "blend_bwd": 0} \
+    if not finite or serve_launches != kernel_launches(5, 0, 1, 0) \
             or int(d["xyz"].shape[0]) != res["points_final"]:
         failures.append(f"drivers: bundle {rec['bundle']}")
     del ev, sc, o, d
-    launches = {k: blend.LAUNCHES[k] for k in blend.LAUNCHES}
+    launches = launch_counts()
 
     # ---- replay: the kernels against the plain path ------------------------
     d = dict(np.load(snap_path))
@@ -1548,7 +1691,7 @@ def bench_phase(dev, failures):
 
     t_phase = time.perf_counter()
     rec = {"phase": "bench"}
-    launches = {k: 0 for k in blend.LAUNCHES}
+    launches = {k: 0 for k in launch_counts()}
     shutil.rmtree(BENCH_TRACE_DIR, ignore_errors=True)
 
     def finite(x):
@@ -1559,21 +1702,22 @@ def bench_phase(dev, failures):
         return not isinstance(x, float) or math.isfinite(x)
 
     def run_bench(tag, argv, want_bwd):
-        before = dict(blend.LAUNCHES)
+        before = launch_counts()
         t0 = time.perf_counter()
         out = bench.run(bench.build_parser().parse_args(
             ["--device", str(dev), "--iters", str(BENCH_ITERS)] + argv))
-        for k in launches:
-            launches[k] += blend.LAUNCHES[k] - before[k]
+        for k, v in launches_since(before).items():
+            launches[k] += v
         out["detail"]["s"] = time.perf_counter() - t0
         rec[tag] = out
+        n_bwd = BENCH_ITERS if want_bwd else 0
+        want = kernel_launches(BENCH_ITERS, n_bwd, BENCH_ITERS, n_bwd)
         for row in out["detail"]["configs"]:
-            want = {"blend_fwd": BENCH_ITERS,
-                    "blend_bwd": BENCH_ITERS if want_bwd else 0}
-            if row["blend_launches"] != want:
+            got = {**row["blend_launches"], **row["warp_launches"]}
+            if got != want:
                 failures.append(f"bench {tag} {row['config']} "
                                 f"{row['resolution']}: a chain launched "
-                                f"{row['blend_launches']}, expected {want}")
+                                f"{got}, expected {want}")
             if "profile_error" in row:
                 failures.append(f"bench {tag} {row['config']} "
                                 f"{row['resolution']}: profile "
@@ -1705,7 +1849,7 @@ def main():
     from ibgs_tpu_torch.eval.render_driver import EvalRenderer
     from ibgs_tpu_torch.models.aggregation import (ColorFusionResidualNet,
                                                    init_fusion_net)
-    from ibgs_tpu_torch.ops import _cuda, blend
+    from ibgs_tpu_torch.ops import _cuda, blend, epilogue
     from ibgs_tpu_torch.ops.rasterize import RasterConfig, prepare
     from ibgs_tpu_torch.renderer import (render_depth_view,
                                          source_views_from_stacks)
@@ -1716,10 +1860,6 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE)
     failures = []
-
-    def reset_launches():
-        for k in blend.LAUNCHES:
-            blend.LAUNCHES[k] = 0
 
     # ---- device ----------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -1837,30 +1977,26 @@ def main():
 
     def captured_bwd_args(wh, mode):
         """The blend-backward arguments of one real backward of the
-        training objective (loss_and_grads) in `mode`."""
+        training objective (loss_and_grads) in `mode` and, in render_geo,
+        the warp backward's (inputs, intrinsics, cotangents)."""
         sc = scenes[wh]
         state, src = train_in[wh]
-        rec_args = []
-        kernel = blend.blend_bwd_cuda
-
-        def recorder(*a):
-            rec_args.append(a)
-            return kernel(*a)
-        blend.blend_bwd_cuda = recorder
-        try:
+        with recording() as seen:
             trainer.loss_and_grads(opt, rcfg, state.net, phases[mode], state,
                                    sc["cam"], 0, sc["gt"], src, iters[mode],
                                    bg, False, 1.0)
-        finally:
-            blend.blend_bwd_cuda = kernel
         torch.cuda.synchronize()
-        feats, start, stop, *geom, saved, cts, row0 = rec_args[0]
+        feats, start, stop, *geom, saved, cts, row0 = seen["blend_bwd"][0]
         saved = type(saved)(*(getattr(saved, f).detach() for f in FIELDS))
-        return (feats.detach(), start, stop, *geom, saved,
-                tuple(c.detach() for c in cts), row0)
+        return ((feats.detach(), start, stop, *geom, saved,
+                 tuple(c.detach() for c in cts), row0),
+                warp_args(seen["warp_bwd"][0]) if mode == 1 else None)
 
-    bwd_args = {(wh, mode): captured_bwd_args(wh, mode)
+    captured = {(wh, mode): captured_bwd_args(wh, mode)
                 for wh in SIZES for mode in (1, 0)}
+    bwd_args = {k: v[0] for k, v in captured.items()}
+    warp_in = {wh: captured[(wh, 1)][1] for wh in SIZES}
+    del captured
 
     # ---- blend_bwd: kernel vs plain at 960x544 -----------------------------
     wh = SIZES[0]
@@ -1889,6 +2025,24 @@ def main():
         rec["modes"][MODE_NAMES[mode]] = m
     emit(rec)
 
+    # ---- warp: both kernels vs plain at both sizes --------------------------
+    rec = {"phase": "warp", "sizes": {}}
+    warp_max_abs_err = {"warp_fwd": 0.0, "warp_bwd": 0.0}
+    gen = torch.Generator().manual_seed(4321)
+    for wh in SIZES:
+        wa, intr, real_cts = warp_in[wh]
+        rand_cts = tuple(torch.randn(c.shape, generator=gen).to(dev)
+                         for c in real_cts)
+        r = {"buffer": wa[0].shape[0], "sources": list(wa[2].shape[:3])}
+        for name, cts in (("real", real_cts), ("random", rand_cts)):
+            r[name], errs = gate_warp_pair(wa, intr, cts,
+                                           f"warp {wh} {name}", failures)
+            for k, v in errs.items():
+                warp_max_abs_err[k] = max(warp_max_abs_err[k], v)
+        rec["sizes"][f"{wh[0]}x{wh[1]}"] = r
+    rec["max_abs_err"] = warp_max_abs_err
+    emit(rec)
+
     # ---- serve: the serving path, counted ----------------------------------
     net = init_fusion_net(ColorFusionResidualNet(
         32, opt.feat_aggregate_mode), torch.Generator().manual_seed(0))
@@ -1897,22 +2051,23 @@ def main():
         sc["train_cameras"], opt, rcfg, device=dev)
         for wh, sc in scenes.items()}
     outs, per_view = {}, {}
-    reset_launches()
+    reset_launch_counts()
     for wh in SIZES:
-        before = dict(blend.LAUNCHES)
+        before = launch_counts()
         outs[wh] = renderers[wh].render_one(scenes[wh]["cam"], nearest)
         torch.cuda.synchronize()
-        per_view[wh] = {k: blend.LAUNCHES[k] - before[k] for k in before}
-    serve_launches = dict(blend.LAUNCHES)
+        per_view[wh] = launches_since(before)
+    serve_launches = launch_counts()
     for wh in SIZES:
         sc, out = scenes[wh], outs[wh]
         finite = all(bool(torch.isfinite(v).all()) for v in out.values()
                      if torch.is_tensor(v) and v.is_floating_point())
         if not finite:
             failures.append(f"serve {wh}: non-finite output")
-        if per_view[wh] != {"blend_fwd": 5, "blend_bwd": 0}:
+        # 4 source depths and one render_geo render with the warp
+        if per_view[wh] != kernel_launches(5, 0, 1, 0):
             failures.append(f"serve {wh}: kernel launches {per_view[wh]}, "
-                            f"expected 5 blend_fwd and 0 blend_bwd")
+                            f"expected {kernel_launches(5, 0, 1, 0)}")
 
         def psnr(img):
             mse = float(((img.clamp(0, 1) - sc["gt"]) ** 2).mean())
@@ -1941,37 +2096,37 @@ def main():
              for mode in (1, 0)}
 
     def run_step(state, mode):
-        before = dict(blend.LAUNCHES)
+        before = launch_counts()
         state, aux = steps[mode](state, sc["cam"], 0, sc["gt"], src,
                                  iters[mode], bg, False, 1.0, NET_LR)
         torch.cuda.synchronize()
         row = {k: float(aux[k]) for k in TRAIN_AUX}
         row.update(nonfinite_grads=int(aux["nonfinite_grads"]),
                    n_instances=aux["n_instances"], n_rows=aux["n_rows"],
-                   launches={k: blend.LAUNCHES[k] - before[k]
-                             for k in before})
+                   launches=launches_since(before))
         if not all(math.isfinite(row[k]) for k in TRAIN_AUX):
             failures.append(f"train {MODE_NAMES[mode]}: non-finite {row}")
         if row["nonfinite_grads"]:
             failures.append(f"train {MODE_NAMES[mode]}: "
                             f"{row['nonfinite_grads']} non-finite gradients")
-        if row["launches"] != {"blend_fwd": 1, "blend_bwd": 1}:
+        want = kernel_launches(1, 1, mode, mode)  # the warp in render_geo
+        if row["launches"] != want:
             failures.append(f"train {MODE_NAMES[mode]}: kernel launches "
-                            f"{row['launches']}, expected 1 of each")
+                            f"{row['launches']}, expected {want}")
         return state, row
 
-    reset_launches()
+    reset_launch_counts()
     geo_rows = []
     for _ in range(TRAIN_STEPS):
         state, row = run_step(state, 1)
         geo_rows.append(row)
-    geo_launches = dict(blend.LAUNCHES)
+    geo_launches = launch_counts()
     if not geo_rows[-1]["loss"] < geo_rows[0]["loss"]:
         failures.append(f"train: loss did not fall over {TRAIN_STEPS} steps "
                         f"({geo_rows[0]['loss']} -> {geo_rows[-1]['loss']})")
-    reset_launches()
+    reset_launch_counts()
     state, color_row = run_step(state, 0)
-    color_launches = dict(blend.LAUNCHES)
+    color_launches = launch_counts()
     train_launches = {k: geo_launches[k] + color_launches[k]
                       for k in geo_launches}
     emit({"phase": "train", "size": f"{wh[0]}x{wh[1]}",
@@ -2038,6 +2193,41 @@ def main():
                 "bytes": nbytes, "walked_pairs": walked,
                 "contrib_pairs": contrib_pairs[(wh, mode)], "ops": ops})
 
+    warp_cases = []
+    for wh in SIZES:
+        wa, intr, cts = warp_in[wh]
+        (B, H, W), (S, Hs, Ws) = wa[0].shape, wa[2].shape[:3]
+        dense = tuple(t.contiguous() for t in wa)
+        pairs = B * H * W * S
+        # each input read once, each output written once: the buffer's
+        # depths and weights, the S colour tables, transforms and rays;
+        # forward wsc + ws, backward their cotangents in and dbd + dbw out
+        in_bytes = 4 * (2 * B * H * W + S * Hs * Ws * 3 + S * 16 + 2 * H * W)
+        calls = {
+            "warp_fwd": (lambda a: epilogue.warp_fwd_cuda(*a, *intr),
+                         lambda: epilogue.warp_views_plain(*wa, *intr),
+                         in_bytes + 4 * S * H * W * 4,
+                         pairs * WARP_OPS_PER_PAIR["warp_fwd"]),
+            "warp_bwd": (lambda a: epilogue.warp_bwd_cuda(*a, intr, *cts),
+                         lambda: epilogue.warp_views_bwd_plain(*wa, intr,
+                                                               *cts),
+                         in_bytes + 4 * S * H * W * 4 + 4 * 2 * B * H * W,
+                         pairs * WARP_OPS_PER_PAIR["warp_bwd"])}
+        for name, (kernel, plain, nbytes, ops) in calls.items():
+            k_ms = cuda_ms(lambda: kernel(dense), 20)
+            w_ms = cuda_ms(lambda: kernel(wa), 20)
+            p_ms = cuda_ms(plain, 1, warmup=0)
+            t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / FP32_FLOP_S
+            warp_cases.append({
+                "kernel": name, "size": f"{wh[0]}x{wh[1]}", "ms": k_ms,
+                "ms_with_layout_copies": w_ms, "plain_ms": p_ms,
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_share": max(t_bytes, t_ops) * 1e3 / k_ms,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "ops": ops, "pairs": pairs,
+                "sources": [S, Hs, Ws], "buffer": B})
+        del dense
+
     serve_ms = {}
     for wh in SIZES:
         sc = scenes[wh]
@@ -2091,12 +2281,13 @@ def main():
             "profile": device_profile(train_one, times["median"],
                                       f"timing train {wh}", failures)}
     emit({"phase": "timing", "blend_fwd": fwd_cases, "blend_bwd": bwd_cases,
+          "warp": warp_cases,
           "tile_ranges": {f"{wh[0]}x{wh[1]}": range_lengths(preps[wh])
                           for wh in SIZES},
           "serve": serve_ms, "train_step": train_ms})
 
     # ---- loop: the training driver from the seed cloud, counted ------------
-    del renderers, train_in, bwd_args, preps, outs, state
+    del renderers, train_in, bwd_args, warp_in, preps, outs, state
     torch.cuda.empty_cache()
     rec, loop_launches, resume_launches = loop_phase(d, dev, failures)
     emit(rec)
@@ -2130,6 +2321,7 @@ def main():
                     if c["mode"] == "render_geo" and c["size"] == size0)
     bwd_main = next(c for c in bwd_cases
                     if c["mode"] == "render_geo" and c["size"] == size0)
+    warp_main = {c["kernel"]: c for c in warp_cases if c["size"] == size0}
     launches_by_path = {k: {"serve": serve_launches[k],
                             "train": train_launches[k],
                             "loop": loop_launches[k],
@@ -2138,7 +2330,7 @@ def main():
                             "parallel": par_launches[k],
                             "drivers": drv_launches[k],
                             "bench": bench_launches[k]}
-                        for k in blend.LAUNCHES}
+                        for k in launch_counts()}
     emit({"phase": "kernels", "launches": launches_by_path})
     for k, by_path in launches_by_path.items():
         if by_path["train"] == 0:
@@ -2151,10 +2343,11 @@ def main():
             failures.append(f"{k} was not launched on the drivers path")
         if by_path["bench"] == 0:
             failures.append(f"{k} was not launched on the bench path")
-    if serve_launches["blend_fwd"] == 0:
-        failures.append("blend_fwd was not launched on the serving path")
-    if eval_launches["blend_fwd"] == 0:
-        failures.append("blend_fwd was not launched on the evaluation path")
+    for k in ("blend_fwd", "warp_fwd"):
+        if serve_launches[k] == 0:
+            failures.append(f"{k} was not launched on the serving path")
+        if eval_launches[k] == 0:
+            failures.append(f"{k} was not launched on the evaluation path")
     if color_launches["blend_bwd"] != 1:
         failures.append("the colour-only step did not launch blend_bwd")
 
@@ -2171,7 +2364,7 @@ def main():
                 "max_abs_err": max_err, "ms": main["ms"],
                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"], "library_ms": None,
-                "cta": cta[name], "cases": cases}
+                "cta": cta.get(name), "cases": cases}
 
     emit({"kernels": [
         line("blend_fwd", "ibgs_tpu_torch/ops/csrc/blend_fwd.cu",
@@ -2179,7 +2372,14 @@ def main():
              fwd_cases),
         line("blend_bwd", "ibgs_tpu_torch/ops/csrc/blend_bwd.cu",
              "ibgs_tpu/ops/blend_pallas.py:422", bwd_main, bwd_max_abs_err,
-             bwd_cases)]})
+             bwd_cases),
+        # no single PyTorch call computes the warp: grid_sample has no
+        # per-entry weight, in-bounds mask, texel-0 rule or B-sum
+        *(line(name, "ibgs_tpu_torch/ops/csrc/warp.cu",
+               f"ibgs_tpu/ops/epilogue.py:{at}", warp_main[name],
+               warp_max_abs_err[name],
+               [c for c in warp_cases if c["kernel"] == name])
+          for name, at in (("warp_fwd", 219), ("warp_bwd", 286)))]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

@@ -34,8 +34,8 @@ are given (then with the JAX package's prefix truncation), so each config
 reports the measured `n_instances` / `n_rows`; bench.py's snug caps exist
 because XLA needs static shapes.  Beside the wall time each config
 reports one profiled step: the card's busy time, its idle share,
-the device launches of the step and the blend kernels' launches of a
-chain, and the peak memory.  The last line printed is one JSON object in
+the device launches of the step and the blend and warp kernels' launches
+of a chain, and the peak memory.  The last line printed is one JSON object in
 bench.py's schema.  The run goes to the card unless `--device cpu` is
 given; without a card it raises.  bench.py's BENCH_MIXP has no flag: the
 JAX epilogue ignores mix_precision, so it changes nothing there either.
@@ -58,7 +58,7 @@ from ibgs_tpu_torch.core.camera import look_at_camera, make_camera
 from ibgs_tpu_torch.models.gaussians import (PARAM_FIELDS, GaussianModel,
                                              GaussianParams,
                                              init_from_points)
-from ibgs_tpu_torch.ops import blend
+from ibgs_tpu_torch.ops import blend, epilogue
 from ibgs_tpu_torch.ops.epilogue import SourceViews
 from ibgs_tpu_torch.ops.rasterize import RasterConfig
 from ibgs_tpu_torch.renderer import render_view
@@ -313,13 +313,13 @@ def run_config(args, dev, rng, model, bundle, n_splats, label, W, H):
         torch.cuda.reset_peak_memory_stats(dev)
     best = float("inf")
     for r in range(args.repeats):
-        before = dict(blend.LAUNCHES)
+        before = {**blend.LAUNCHES, **epilogue.LAUNCHES}
         best = min(best, profiling.wall_ms(
             lambda: chain(model, cam, cfg, src, gt, k, args.mode),
             device=dev) / 1e3)
         if r == 0:
-            chain_launches = {n: blend.LAUNCHES[n] - before[n]
-                              for n in before}
+            now = {**blend.LAUNCHES, **epilogue.LAUNCHES}
+            chain_launches = {n: now[n] - before[n] for n in before}
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
         else None
     dt = best / k
@@ -336,7 +336,9 @@ def run_config(args, dev, rng, model, bundle, n_splats, label, W, H):
         "device_busy_ms": prof.get("device_busy_ms"),
         "idle_share": prof["idle_share"],
         "launches": prof.get("device_launches"),
-        "blend_launches": chain_launches, "chain_iters": k,
+        "blend_launches": {n: chain_launches[n] for n in blend.LAUNCHES},
+        "warp_launches": {n: chain_launches[n] for n in epilogue.LAUNCHES},
+        "chain_iters": k,
         "max_memory_allocated": peak,
     }
     if "error" in prof:

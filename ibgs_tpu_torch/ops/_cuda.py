@@ -22,7 +22,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "ops" / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "ibgs_tpu_torch"
 SOURCES = {"blend_fwd": CSRC / "blend_fwd.cu",
-           "blend_bwd": CSRC / "blend_bwd.cu"}
+           "blend_bwd": CSRC / "blend_bwd.cu",
+           "warp": CSRC / "warp.cu"}
 HEADERS = (CSRC / "blend_common.cuh",)
 # --fmad=false: no multiply-add contraction, so float ops round one by one
 # as the plain PyTorch versions' ops do (see the notes in the sources).
@@ -49,6 +50,14 @@ _SIGNATURES = {
                                  _c_int),
     "ibgs_blend_bwd_occupancy": ([_c_int] * 4 + [ctypes.POINTER(_c_int)] * 2,
                                  _c_int),
+    # bd, bw, tables, r2s, pdx, pdy, B, n_pix, S, Hs, Ws, fx, fy, cx, cy,
+    # wsc, ws, the stream
+    "ibgs_warp_fwd": ([_c_ptr] * 6 + [_c_int] * 5 + [_c_float] * 4
+                      + [_c_ptr] * 3, _c_int),
+    # bd, bw, tables, r2s, pdx, pdy, g_wsc, g_wsum, B, n_pix, S, Hs, Ws,
+    # fx, fy, cx, cy, dbd, dbw, the stream
+    "ibgs_warp_bwd": ([_c_ptr] * 8 + [_c_int] * 5 + [_c_float] * 4
+                      + [_c_ptr] * 3, _c_int),
     "ibgs_cuda_error_string": ([_c_int], ctypes.c_char_p),
 }
 
@@ -157,6 +166,31 @@ def blend_bwd(feats, tile_start, tile_stop, tiles_x, tiles_y, tile_h,
         *(c.data_ptr() for c in cts), out.data_ptr(),
         None if scratch is None else scratch.data_ptr(), feats.shape[0],
         workspace.data_ptr(), stream)
+
+
+def warp_fwd(bd, bw, tables, r2s, pdx, pdy, intr, wsc, ws, stream) -> int:
+    """Launch ibgs_warp_fwd: bd, bw (B, H, W), tables (S, Hs, Ws, 3), r2s
+    (S, 4, 4), pdx, pdy (H, W), all contiguous float32, `intr` (fx, fy,
+    cx, cy); writes wsc (S, H, W, 3) and ws (S, H, W).  Returns the CUDA
+    error code of the launch (0 = success)."""
+    S, Hs, Ws = tables.shape[0], tables.shape[1], tables.shape[2]
+    return load("warp").ibgs_warp_fwd(
+        bd.data_ptr(), bw.data_ptr(), tables.data_ptr(), r2s.data_ptr(),
+        pdx.data_ptr(), pdy.data_ptr(), bd.shape[0], pdx.numel(), S, Hs, Ws,
+        *intr, wsc.data_ptr(), ws.data_ptr(), stream)
+
+
+def warp_bwd(bd, bw, tables, r2s, pdx, pdy, intr, g_wsc, g_wsum, dbd, dbw,
+             stream) -> int:
+    """Launch ibgs_warp_bwd: the forward's inputs and the cotangents g_wsc
+    (S, H, W, 3), g_wsum (S, H, W), all contiguous float32; writes dbd, dbw
+    (B, H, W).  Returns the CUDA error code of the launch."""
+    S, Hs, Ws = tables.shape[0], tables.shape[1], tables.shape[2]
+    return load("warp").ibgs_warp_bwd(
+        bd.data_ptr(), bw.data_ptr(), tables.data_ptr(), r2s.data_ptr(),
+        pdx.data_ptr(), pdy.data_ptr(), g_wsc.data_ptr(), g_wsum.data_ptr(),
+        bd.shape[0], pdx.numel(), S, Hs, Ws, *intr, dbd.data_ptr(),
+        dbw.data_ptr(), stream)
 
 
 def occupancy(name: str, mode: int, buffer_len: int, sub_h: int,

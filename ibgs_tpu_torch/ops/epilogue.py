@@ -12,6 +12,10 @@ are differentiable w.r.t. the buffer depths and weights (the warp through
 the hand-written VJP of `_WarpViews`); the source views, `camera_ray`,
 `cam_feat`, `min_depth_diff`, `valid_src_weight` and the occlusion test
 carry no gradient.
+
+The warp runs as two hand-written CUDA kernels on a card (csrc/warp.cu:
+`warp_fwd_cuda`, `warp_bwd_cuda`, counted in LAUNCHES) and as its plain
+PyTorch versions on the CPU (`warp_views_plain`, `warp_views_bwd_plain`).
 """
 from __future__ import annotations
 
@@ -25,6 +29,8 @@ from ibgs_tpu_torch.ops.preprocess import to_i32
 
 EPS = 1.0e-8
 RGB10_SCALE = 1023.0
+# warp kernel launches (counted by the wrappers where they launch)
+LAUNCHES = {"warp_fwd": 0, "warp_bwd": 0}
 
 
 @dataclasses.dataclass
@@ -140,58 +146,146 @@ def warp_views_plain(bd, bw, tables, r2s, pdx, pdy, fx, fy, cx, cy):
     return torch.stack(wsc, 0), torch.stack(ws, 0)
 
 
-class _WarpViews(torch.autograd.Function):
-    """`warp_views_plain` with the JAX package's hand-derived VJP
-    (`_warp_views_bwd`): the bilinear texture gradient chained through the
+def warp_views_bwd_plain(bd, bw, tables, r2s, pdx, pdy, intr, g_wsc,
+                         g_wsum):
+    """The JAX package's hand-derived VJP of the warp (`_warp_views_bwd`)
+    in plain PyTorch: the bilinear texture gradient chained through the
     projection Jacobian dp/d(depth), plus the in-bounds-masked weight
-    gradient.  The backward recomputes the projection and the corner
-    gather from the inputs instead of saving the (B, H, W, 3) corner slabs
-    of every source.  The source tables, transforms and rays get no
-    gradient."""
+    gradient.  It recomputes the projection and the corner gather from the
+    inputs instead of saving the (B, H, W, 3) corner slabs of every source.
+    `intr` is (fx, fy, cx, cy); g_wsc (S, H, W, 3), g_wsum (S, H, W) are the
+    cotangents of the two outputs.  Returns (dbd, dbw), each (B, H, W)."""
+    fx, fy, cx, cy = intr
+    S, Hs, Ws = tables.shape[0], tables.shape[1], tables.shape[2]
+    dbd = torch.zeros_like(bd)
+    dbw = torch.zeros_like(bw)
+    for s in range(S):
+        pu, pv, inb, qx, qy, inv_z = _proj_view(
+            bd, r2s[s], pdx, pdy, fx, fy, cx, cy, Hs, Ws)
+        inbf = inb.to(bw.dtype)
+        w_eff = bw * inbf
+        (c00, c01, c10, c11), fu, fv = _warp_corners(tables[s], pu, pv,
+                                                     w_eff, Hs, Ws)
+        w00 = (1 - fu) * (1 - fv)
+        w01 = fu * (1 - fv)
+        w10 = (1 - fu) * fv
+        w11 = fu * fv
+        dw_eff = g_wsum[s][None]
+        du = torch.zeros_like(bd)
+        dv = torch.zeros_like(bd)
+        for ch in range(3):
+            a00, a01 = c00[..., ch], c01[..., ch]
+            a10, a11 = c10[..., ch], c11[..., ch]
+            col = w00 * a00 + w01 * a01 + w10 * a10 + w11 * a11
+            gc = g_wsc[s][None, ..., ch]
+            dw_eff = dw_eff + col * gc
+            dcol = w_eff * gc
+            du = du + dcol * ((1 - fv) * (a01 - a00) + fv * (a11 - a10))
+            dv = dv + dcol * ((1 - fu) * (a10 - a00) + fu * (a11 - a01))
+        dbw = dbw + dw_eff * inbf
+        # q = A·(pdx·d, pdy·d, d) + t, so dq/dd = A·(pdx, pdy, 1)
+        rx, ry, rz = (r2s[s, i, 0] * pdx + r2s[s, i, 1] * pdy
+                      + r2s[s, i, 2] for i in range(3))
+        du_dbd = fx * (rx[None] - qx * inv_z * rz[None]) * inv_z
+        dv_dbd = fy * (ry[None] - qy * inv_z * rz[None]) * inv_z
+        dbd = dbd + du * du_dbd + dv * dv_dbd
+    return dbd, dbw
+
+
+def _check_warp(name, bd, bw, tables, r2s, pdx, pdy, cts=()):
+    """Shapes, dtypes and devices the warp kernels take; raises ValueError."""
+    if bd.ndim != 3 or tables.ndim != 4 or tables.shape[3] != 3 \
+            or min(tables.shape[1:3]) < 1:
+        raise ValueError(f"{name}: bd must be (B, H, W) and tables (S, Hs, "
+                         f"Ws, 3) with Hs, Ws >= 1, got {tuple(bd.shape)} "
+                         f"and {tuple(tables.shape)}")
+    (B, H, W), S = bd.shape, tables.shape[0]
+    for arg, t, shape in (("bd", bd, (B, H, W)), ("bw", bw, (B, H, W)),
+                          ("tables", tables, tuple(tables.shape)),
+                          ("r2s", r2s, (S, 4, 4)), ("pdx", pdx, (H, W)),
+                          ("pdy", pdy, (H, W)),
+                          *zip(("g_wsc", "g_wsum"), cts,
+                               ((S, H, W, 3), (S, H, W)))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape \
+                or t.device != bd.device:
+            raise ValueError(f"{name}: {arg} must be float32 {shape} on "
+                             f"{bd.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if bd.device.type != "cuda":
+        raise ValueError(f"{name}: tensors must be on a CUDA device, got "
+                         f"{bd.device}")
+
+
+def warp_fwd_cuda(bd, bw, tables, r2s, pdx, pdy, fx, fy, cx, cy):
+    """`warp_views_plain` (same arguments and outputs) as the CUDA forward
+    kernel (csrc/warp.cu) on the current stream, one count in LAUNCHES.
+    The permuted (B, H, W) views of the blend's buffers are copied to
+    contiguous tensors first."""
+    from ibgs_tpu_torch.ops import _cuda
+
+    _check_warp("warp_fwd_cuda", bd, bw, tables, r2s, pdx, pdy)
+    _, H, W = bd.shape
+    S = tables.shape[0]
+    dev = bd.device
+    wsc = torch.empty(S, H, W, 3, dtype=torch.float32, device=dev)
+    ws = torch.empty(S, H, W, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _cuda.warp_fwd(
+            *(t.contiguous() for t in (bd, bw, tables, r2s, pdx, pdy)),
+            (float(fx), float(fy), float(cx), float(cy)), wsc, ws,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"warp_fwd kernel launch failed: "
+                           f"{_cuda.error_string(err)} ({err})")
+    LAUNCHES["warp_fwd"] += 1
+    return wsc, ws
+
+
+def warp_bwd_cuda(bd, bw, tables, r2s, pdx, pdy, intr, g_wsc, g_wsum):
+    """`warp_views_bwd_plain` (same arguments and outputs) as the CUDA
+    backward kernel (csrc/warp.cu) on the current stream, one count in
+    LAUNCHES.  Returns contiguous (dbd, dbw)."""
+    from ibgs_tpu_torch.ops import _cuda
+
+    _check_warp("warp_bwd_cuda", bd, bw, tables, r2s, pdx, pdy,
+                (g_wsc, g_wsum))
+    dev = bd.device
+    dbd = torch.empty(bd.shape, dtype=torch.float32, device=dev)
+    dbw = torch.empty(bd.shape, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _cuda.warp_bwd(
+            *(t.contiguous() for t in (bd, bw, tables, r2s, pdx, pdy)),
+            tuple(float(v) for v in intr), g_wsc.contiguous(),
+            g_wsum.contiguous(), dbd, dbw,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"warp_bwd kernel launch failed: "
+                           f"{_cuda.error_string(err)} ({err})")
+    LAUNCHES["warp_bwd"] += 1
+    return dbd, dbw
+
+
+class _WarpViews(torch.autograd.Function):
+    """The warp as one differentiable op of the buffer depths and weights,
+    with the JAX package's hand-derived VJP.  CPU tensors go through the
+    plain versions (`warp_views_plain`, `warp_views_bwd_plain`), CUDA
+    tensors through the kernels (`warp_fwd_cuda`, `warp_bwd_cuda`), which
+    raise on what they do not take.  The source tables, transforms and
+    rays get no gradient."""
 
     @staticmethod
     def forward(ctx, bd, bw, tables, r2s, pdx, pdy, intr):
         ctx.save_for_backward(bd, bw, tables, r2s, pdx, pdy)
         ctx.intr = intr
-        return warp_views_plain(bd, bw, tables, r2s, pdx, pdy, *intr)
+        fwd = warp_views_plain if bd.device.type == "cpu" else warp_fwd_cuda
+        return fwd(bd, bw, tables, r2s, pdx, pdy, *intr)
 
     @staticmethod
     def backward(ctx, g_wsc, g_wsum):
-        bd, bw, tables, r2s, pdx, pdy = ctx.saved_tensors
-        fx, fy, cx, cy = ctx.intr
-        S, Hs, Ws = tables.shape[0], tables.shape[1], tables.shape[2]
-        dbd = torch.zeros_like(bd)
-        dbw = torch.zeros_like(bw)
-        for s in range(S):
-            pu, pv, inb, qx, qy, inv_z = _proj_view(
-                bd, r2s[s], pdx, pdy, fx, fy, cx, cy, Hs, Ws)
-            inbf = inb.to(bw.dtype)
-            w_eff = bw * inbf
-            (c00, c01, c10, c11), fu, fv = _warp_corners(tables[s], pu, pv,
-                                                         w_eff, Hs, Ws)
-            w00 = (1 - fu) * (1 - fv)
-            w01 = fu * (1 - fv)
-            w10 = (1 - fu) * fv
-            w11 = fu * fv
-            dw_eff = g_wsum[s][None]
-            du = torch.zeros_like(bd)
-            dv = torch.zeros_like(bd)
-            for ch in range(3):
-                a00, a01 = c00[..., ch], c01[..., ch]
-                a10, a11 = c10[..., ch], c11[..., ch]
-                col = w00 * a00 + w01 * a01 + w10 * a10 + w11 * a11
-                gc = g_wsc[s][None, ..., ch]
-                dw_eff = dw_eff + col * gc
-                dcol = w_eff * gc
-                du = du + dcol * ((1 - fv) * (a01 - a00) + fv * (a11 - a10))
-                dv = dv + dcol * ((1 - fu) * (a10 - a00) + fu * (a11 - a01))
-            dbw = dbw + dw_eff * inbf
-            # q = A·(pdx·d, pdy·d, d) + t, so dq/dd = A·(pdx, pdy, 1)
-            rx, ry, rz = (r2s[s, i, 0] * pdx + r2s[s, i, 1] * pdy
-                          + r2s[s, i, 2] for i in range(3))
-            du_dbd = fx * (rx[None] - qx * inv_z * rz[None]) * inv_z
-            dv_dbd = fy * (ry[None] - qy * inv_z * rz[None]) * inv_z
-            dbd = dbd + du * du_dbd + dv * dv_dbd
+        saved = ctx.saved_tensors
+        bwd = (warp_views_bwd_plain if saved[0].device.type == "cpu"
+               else warp_bwd_cuda)
+        dbd, dbw = bwd(*saved, ctx.intr, g_wsc, g_wsum)
         return dbd, dbw, None, None, None, None, None
 
 

@@ -146,6 +146,16 @@ def prepare(*, xyz, scale, quat, opacity, sh_coeffs, active_sh_degree,
     if (sh_coeffs is None) == (rgb_override is None):
         raise ValueError(
             "rasterize: provide exactly one of sh_coeffs or rgb_override")
+    if sh_coeffs is not None and (
+            sh_coeffs.ndim != 3 or sh_coeffs.shape[0] != P
+            or sh_coeffs.shape[2] != 3):
+        raise ValueError(
+            f"rasterize: sh_coeffs must be (P, n_sh, 3), got "
+            f"{tuple(sh_coeffs.shape)}")
+    if rgb_override is not None and tuple(rgb_override.shape) != (P, 3):
+        raise ValueError(
+            f"rasterize: rgb_override must be (P, 3), got "
+            f"{tuple(rgb_override.shape)}")
 
     band = viewport_rows is not None
     row0 = int(viewport_row0 or 0) if band else 0

@@ -117,13 +117,20 @@ def test_rgb10_quantisation_and_bilinear():
                                    jnp.asarray(v)))
 
 
-def _warp_inputs(seed):
+def _warp_inputs(seed, src_hw=None, row0=0):
+    """Buffer, sources, rays, intrinsics and cotangents of the warp;
+    `src_hw` gives the sources another size than the view's, `row0` puts
+    the view's rows at [row0, row0 + H) of the image (a band)."""
     bl, src = _f32(_blend(seed)), _f32(_sources(seed + 10))
+    if src_hw is not None:
+        r = np.random.default_rng(seed + 30)
+        src["images"] = r.uniform(-0.1, 1.1, (S,) + src_hw + (3,)
+                                  ).astype(np.float32)
     jc = simple_camera(W, H)
     bd = np.ascontiguousarray(np.transpose(bl["buf_depth"], (2, 0, 1)))
     bw = np.ascontiguousarray(np.transpose(bl["buf_weight"], (2, 0, 1)))
     gx, gy = np.meshgrid(np.arange(W, dtype=np.float32),
-                         np.arange(H, dtype=np.float32))
+                         np.arange(H, dtype=np.float32) + np.float32(row0))
     intr = [float(np.float32(v)) for v in (jc.fx, jc.fy, jc.cx, jc.cy)]
     pdx = ((gx - np.float32(intr[2])) / np.float32(intr[0])).astype(np.float32)
     pdy = ((gy - np.float32(intr[3])) / np.float32(intr[1])).astype(np.float32)
@@ -139,11 +146,24 @@ def _close_grad(got, want, msg, atol=1e-5):
                                atol=atol * np.abs(want).max(), err_msg=msg)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_warp_views_vjp(seed):
-    bd, bw, src, pdx, pdy, intr, cts = _warp_inputs(seed)
+def _torch_warp_args(src, pdx, pdy):
+    return dict(tables=tep.quantize_rgb10(torch.as_tensor(src["images"])),
+                r2s=torch.as_tensor(src["ref_to_src"]),
+                pdx=torch.as_tensor(pdx), pdy=torch.as_tensor(pdy))
+
+
+@pytest.mark.parametrize("seed,src_hw,row0", [
+    (0, None, 0), (1, None, 0), (2, (20, 36), 0), (3, (44, 60), 16)],
+    ids=["0", "1", "smaller_sources", "larger_sources_row0_16"])
+def test_warp_views_vjp(seed, src_hw, row0):
+    """The plain backward `warp_views_bwd_plain`, the autograd Function
+    and torch autograd of `warp_views_plain` against the JAX `_warp_views`
+    VJP, also with sources of another size than the view and on a band of
+    rows starting at row0 > 0."""
+    bd, bw, src, pdx, pdy, intr, cts = _warp_inputs(seed, src_hw, row0)
+    Hs, Ws = src["images"].shape[1:3]
     tables = jnp.stack([jep.pack_bilinear_corners_rgb10(
-        jnp.asarray(src["images"][s])).reshape(H, W, 4) for s in range(S)])
+        jnp.asarray(src["images"][s])).reshape(Hs, Ws, 4) for s in range(S)])
     _, vjp = jax.vjp(
         lambda d, w: jep._warp_views(d, w, tables,
                                      jnp.asarray(src["ref_to_src"]),
@@ -152,10 +172,10 @@ def test_warp_views_vjp(seed):
         jnp.asarray(bd), jnp.asarray(bw))
     want_d, want_w = vjp(tuple(jnp.asarray(c) for c in cts))
 
-    t = dict(tables=tep.quantize_rgb10(torch.as_tensor(src["images"])),
-             r2s=torch.as_tensor(src["ref_to_src"]),
-             pdx=torch.as_tensor(pdx), pdy=torch.as_tensor(pdy))
-    grads = {}
+    t = _torch_warp_args(src, pdx, pdy)
+    grads = {"bwd_plain": [x.numpy() for x in tep.warp_views_bwd_plain(
+        torch.as_tensor(bd), torch.as_tensor(bw), t["tables"], t["r2s"],
+        t["pdx"], t["pdy"], intr, *(torch.as_tensor(c) for c in cts))]}
     for name, fn in (("vjp", tep.warp_views), ("plain", tep.warp_views_plain)):
         d = torch.as_tensor(bd).requires_grad_(True)
         w = torch.as_tensor(bw).requires_grad_(True)
@@ -167,6 +187,83 @@ def test_warp_views_vjp(seed):
     for name, (gd, gw) in grads.items():
         _close_grad(gd, want_d, f"{name} dbd")
         _close_grad(gw, want_w, f"{name} dbw")
+    # the Function's backward is the plain backward, bit for bit
+    for a, b in zip(grads["vjp"], grads["bwd_plain"]):
+        np.testing.assert_array_equal(a, b)
+    if src_hw is not None and src_hw[1] < W:
+        # the smaller sources' bounds mask some used entries out
+        ws = tep.warp_views_plain(torch.as_tensor(bd), torch.as_tensor(bw),
+                                  t["tables"], t["r2s"], t["pdx"], t["pdy"],
+                                  *intr)[1]
+        assert (ws.numpy() < bw.sum(0)[None] * (1 - 1e-6)).any()
+
+
+def test_warp_kernel_wrappers_refuse_cpu_tensors(monkeypatch):
+    """warp_fwd_cuda / warp_bwd_cuda check their inputs and raise
+    ValueError on CPU tensors (and on bad shapes or dtypes) before any
+    build or launch."""
+    from ibgs_tpu_torch.ops import _cuda
+
+    def no_build(*a, **k):
+        raise AssertionError("the kernel was built or loaded")
+    monkeypatch.setattr(_cuda, "load", no_build)
+    monkeypatch.setattr(_cuda, "build", no_build)
+    bd, bw, src, pdx, pdy, intr, cts = _warp_inputs(0)
+    t = _torch_warp_args(src, pdx, pdy)
+    args = (torch.as_tensor(bd), torch.as_tensor(bw), t["tables"], t["r2s"],
+            t["pdx"], t["pdy"])
+    g = tuple(torch.as_tensor(c) for c in cts)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tep.warp_fwd_cuda(*args, *intr)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tep.warp_bwd_cuda(*args, intr, *g)
+    bad = {"double bw": (args[0], args[1].double()) + args[2:],
+           "short pdx": args[:4] + (args[4][:-1],) + args[5:],
+           "r2s of another S": args[:3] + (args[3][:-1],) + args[4:],
+           "tables without channels": args[:2] + (args[2][..., 0],)
+           + args[3:]}
+    for name, a in bad.items():
+        with pytest.raises(ValueError):
+            tep.warp_fwd_cuda(*a, *intr)
+        with pytest.raises(ValueError):
+            tep.warp_bwd_cuda(*a, intr, *g)
+    with pytest.raises(ValueError, match="g_wsum"):
+        tep.warp_bwd_cuda(*args, intr, g[0], g[1][:, :-1])
+
+
+def test_cpu_warp_launches_no_kernel():
+    """A CPU warp forward and backward go through the plain versions and
+    leave the kernels' launch counts at zero."""
+    bd, bw, src, pdx, pdy, intr, cts = _warp_inputs(1)
+    t = _torch_warp_args(src, pdx, pdy)
+    d = torch.as_tensor(bd).requires_grad_(True)
+    w = torch.as_tensor(bw).requires_grad_(True)
+    wsc, ws = tep.warp_views(d, w, t["tables"], t["r2s"], t["pdx"],
+                             t["pdy"], *intr)
+    torch.autograd.grad((wsc.sum() + ws.sum()), [d, w])
+    assert tep.LAUNCHES == {"warp_fwd": 0, "warp_bwd": 0}
+    want = tep.warp_views_plain(torch.as_tensor(bd), torch.as_tensor(bw),
+                                t["tables"], t["r2s"], t["pdx"], t["pdy"],
+                                *intr)
+    for a, b in zip((wsc, ws), want):
+        assert torch.equal(a.detach(), b)
+
+
+def test_warp_kernel_is_built_and_bound():
+    """The warp source is among the sources `_cuda.build` compiles, and
+    each C entry's ctypes signature has as many arguments as the C
+    declaration in csrc/warp.cu."""
+    import re
+
+    from ibgs_tpu_torch.ops import _cuda
+    assert _cuda.SOURCES["warp"].name == "warp.cu"
+    text = _cuda.SOURCES["warp"].read_text()
+    for fn in ("ibgs_warp_fwd", "ibgs_warp_bwd"):
+        assert fn in _cuda._SIGNATURES
+        m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", text)
+        assert m, fn
+        assert len(m.group(1).split(",")) == len(_cuda._SIGNATURES[fn][0])
+    assert 'extern "C" const char* ibgs_cuda_error_string' in text
 
 
 def test_epilogue_gradient_stops_match_jax():

@@ -18,14 +18,23 @@ many staging rounds, two sub-tile CTAs of very different lengths,
 longest-first order), ranges that end inside a batch, bit-identical
 forward repeats, and a backward tile whose warps stop at very different
 positions.
+
+The warp kernels (csrc/warp.cu) are held to `warp_views_plain` and
+`warp_views_bwd_plain` with the same two tolerances (the forward sums its
+B entries in another order; each backward gradient is per entry) and with
+non-finite values in the same places, on seeded buffers of B = 4 and 8
+entries and S = 1 and 5 sources smaller and larger than the view, all-zero
+weights, projections wholly out of bounds, one NaN source texel and a band
+at row0 272.
 """
 import dataclasses
+import zlib
 
 import numpy as np
 import pytest
 import torch
 
-from ibgs_tpu_torch.ops import blend
+from ibgs_tpu_torch.ops import blend, epilogue
 from ibgs_tpu_torch.ops.blend_common import BlendConfig
 
 FIELDS = ("color", "normal", "final_t", "n_contrib", "buf_depth",
@@ -335,6 +344,142 @@ def test_bwd_kernel_empty_and_bad_inputs():
     with pytest.raises(ValueError):        # CPU tensors
         blend.blend_bwd_cuda(torch.zeros(4, 13), z.cpu(), z.cpu(), 64, 16,
                              10.0, 10.0, 32.0, 8.0, cfg, saved, cts)
+
+
+# ---------------------------------------------------------------- the warp
+
+# (B, S, source size) and the special cases: all-zero weights, projections
+# wholly out of bounds, one NaN source texel, a band at row0 272
+WARP_CASES = [(b, s_, src) for b in (4, 8) for s_ in (1, 5)
+              for src in ("smaller", "larger")] + [
+    (4, 5, "zero_weights"), (4, 5, "out_of_bounds"), (4, 5, "nan_texel"),
+    (4, 5, "row0_272")]
+
+
+def _warp_inputs(B, S, case, dev, H=48, W=80):
+    """Seeded warp inputs on `dev`: (bd, bw, tables, r2s, pdx, pdy) with bd
+    and bw the (B, H, W) permuted views of (H, W, B) buffers, as the
+    epilogue passes them, the intrinsics and the two cotangents."""
+    r = np.random.default_rng(zlib.crc32(f"{B} {S} {case}".encode()))
+    row0, img_h = (272, 544) if case == "row0_272" else (0, H)
+    fx = fy = 60.0
+    cx, cy = W / 2.0, img_h / 2.0
+    Hs, Ws = {"smaller": (H // 2 + 3, W // 2 + 5),
+              "larger": (2 * H + 1, 2 * W + 3)}.get(case, (img_h, W))
+    used = r.uniform(size=(H, W, B)) < 0.7
+    bw = np.where(used, r.uniform(0.01, 0.5, (H, W, B)), 0.0)
+    if case == "zero_weights":
+        bw[:] = 0.0
+    bd = np.where(used, 3.0 + r.normal(size=(H, W, B)) * 0.03, 0.0)
+    images = r.uniform(-0.1, 1.1, (S, Hs, Ws, 3))
+    if case == "nan_texel":
+        images[0, H // 2, W // 2, 1] = np.nan
+    r2s = np.tile(np.eye(4), (S, 1, 1))
+    for s_ in range(S):
+        a = r.normal(size=3) * 0.02            # a small rotation
+        k = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+        r2s[s_, :3, :3] += k
+        r2s[s_, :3, 3] = r.normal(size=3) * [0.05, 0.05, 0.01]
+    if case == "out_of_bounds":
+        r2s[:, 0, 3] = 100.0
+    gx, gy = np.meshgrid(np.arange(W), np.arange(H) + row0)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(dev)
+    buf_d, buf_w = f32(bd), f32(bw)
+    args = (buf_d.permute(2, 0, 1), buf_w.permute(2, 0, 1),
+            epilogue.quantize_rgb10(f32(images)), f32(r2s),
+            f32((gx - cx) / fx), f32((gy - cy) / fy))
+    cts = (f32(r.normal(size=(S, H, W, 3))), f32(r.normal(size=(S, H, W))))
+    return args, (fx, fy, cx, cy), cts
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _assert_warp_close(got, want, rel, abs_, per_column):
+    """NaN in the same places; elsewhere |got - want| <= abs_ + rel·|want|
+    (forward) or, per column, <= rel·max|want| + abs_ (backward)."""
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    fin = ~torch.isnan(want)
+    err = (got - want).abs()[fin]
+    if per_column:
+        scale = float(want[fin].abs().max()) if fin.any() else 0.0
+        assert (float(err.max()) if err.numel() else 0.0) \
+            <= rel * scale + abs_
+    else:
+        assert bool((err <= abs_ + rel * want[fin].abs()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,case", WARP_CASES)
+def test_warp_kernels_match_plain(B, S, case):
+    """warp_fwd_cuda against warp_views_plain (1e-5 abs + 1e-5 rel: the
+    B-sum's order differs) and warp_bwd_cuda against warp_views_bwd_plain
+    (each of dbd, dbw within 1e-4 x its largest plain value + 1e-7), NaN
+    in the same places; two backward runs bit-identical."""
+    dev = _cuda()
+    args, intr, cts = _warp_inputs(B, S, case, dev)
+    k_fwd = epilogue.warp_fwd_cuda(*args, *intr)
+    p_fwd = epilogue.warp_views_plain(*args, *intr)
+    k1 = epilogue.warp_bwd_cuda(*args, intr, *cts)
+    k2 = epilogue.warp_bwd_cuda(*args, intr, *cts)
+    p_bwd = epilogue.warp_views_bwd_plain(*args, intr, *cts)
+    torch.cuda.synchronize()
+    for k, p in zip(k_fwd, p_fwd):
+        _assert_warp_close(k, p, 1e-5, 1e-5, per_column=False)
+    for a, b, p in zip(k1, k2, p_bwd):
+        _assert_warp_close(a, p, 1e-4, 1e-7, per_column=True)
+        assert _same_bits(a, b)
+    nan = [bool(torch.isnan(t).any()) for t in (*k_fwd, *k1)]
+    assert any(nan) == (case == "nan_texel")
+    if case == "zero_weights":
+        assert not bool(k_fwd[0].any()) and not bool(k_fwd[1].any())
+    if case == "out_of_bounds":
+        assert not bool(k_fwd[1].any()) and not bool(k1[1].any())
+
+
+@pytest.mark.gpu
+def test_warp_function_launches_each_kernel_once():
+    """One `warp_views` forward and backward on the card launches each
+    warp kernel exactly once and gives the plain versions' results."""
+    dev = _cuda()
+    args, intr, cts = _warp_inputs(4, 5, "larger", dev)
+    d = args[0].detach().requires_grad_(True)
+    w = args[1].detach().requires_grad_(True)
+    before = dict(epilogue.LAUNCHES)
+    wsc, ws = epilogue.warp_views(d, w, *args[2:], *intr)
+    gd, gw = torch.autograd.grad((wsc * cts[0]).sum() + (ws * cts[1]).sum(),
+                                 [d, w])
+    torch.cuda.synchronize()
+    assert {k: epilogue.LAUNCHES[k] - before[k] for k in before} == \
+        {"warp_fwd": 1, "warp_bwd": 1}
+    for k, p in zip((wsc, ws), epilogue.warp_views_plain(*args, *intr)):
+        _assert_warp_close(k, p, 1e-5, 1e-5, per_column=False)
+    for k, p in zip((gd, gw),
+                    epilogue.warp_views_bwd_plain(*args, intr, *cts)):
+        _assert_warp_close(k, p, 1e-4, 1e-7, per_column=True)
+
+
+@pytest.mark.gpu
+def test_warp_kernels_refuse_bad_inputs():
+    """The wrappers raise ValueError on what the kernels do not take and
+    count no launch."""
+    dev = _cuda()
+    args, intr, cts = _warp_inputs(4, 5, "larger", dev)
+    before = dict(epilogue.LAUNCHES)
+    bad = [(args[0].double(),) + args[1:],
+           args[:2] + (args[2].cpu(),) + args[3:],
+           args[:3] + (args[3][:2],) + args[4:],
+           args[:4] + (args[4][:, :-1],) + args[5:],
+           args[:2] + (args[2][..., :2],) + args[3:]]
+    for a in bad:
+        with pytest.raises(ValueError):
+            epilogue.warp_fwd_cuda(*a, *intr)
+        with pytest.raises(ValueError):
+            epilogue.warp_bwd_cuda(*a, intr, *cts)
+    with pytest.raises(ValueError):
+        epilogue.warp_bwd_cuda(*args, intr, cts[0][:, 1:], cts[1])
+    assert epilogue.LAUNCHES == before
 
 
 # ---------------------------------------------- densify, KNN and the loop
@@ -733,15 +878,20 @@ def test_gsp_step_at_world_size_one_matches_single_chip():
 
 
 class _PlainBlend:
-    """Routes the blend wrappers to their plain versions on the card."""
+    """Routes the blend and warp wrappers to their plain versions on the
+    card."""
 
     def __enter__(self):
-        self.kernels = blend.blend_fwd_cuda, blend.blend_bwd_cuda
+        self.kernels = (blend.blend_fwd_cuda, blend.blend_bwd_cuda,
+                        epilogue.warp_fwd_cuda, epilogue.warp_bwd_cuda)
         blend.blend_fwd_cuda = blend.blend_plain
         blend.blend_bwd_cuda = blend.blend_bwd_plain
+        epilogue.warp_fwd_cuda = epilogue.warp_views_plain
+        epilogue.warp_bwd_cuda = epilogue.warp_views_bwd_plain
 
     def __exit__(self, *exc):
-        blend.blend_fwd_cuda, blend.blend_bwd_cuda = self.kernels
+        (blend.blend_fwd_cuda, blend.blend_bwd_cuda, epilogue.warp_fwd_cuda,
+         epilogue.warp_bwd_cuda) = self.kernels
 
 
 @pytest.mark.gpu
