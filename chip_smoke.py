@@ -17,24 +17,28 @@ Phases, one JSON line each; any failure makes the exit code 1:
              modes render_geo and colour, with the cotangents of one real
              backward of the training objective and one seeded random
              set; two kernel runs bit-identical
-  warp       both warp kernels (csrc/warp.cu) against their plain versions
-             at 960x544 and 1920x1088 on the median buffers, sources and
-             cotangents of that real render_geo backward and on one seeded
-             random set of cotangents: forward 1e-5 abs + 1e-5 rel,
-             backward per gradient 1e-4 x its largest value + 1e-7,
-             non-finite values in the same places, two backward runs
-             bit-identical
+  warp       the three warp kernels (csrc/warp.cu) against their plain
+             versions at 960x544 and 1920x1088 on the source images,
+             median buffers, median, source depths and cotangents of that
+             real render_geo backward and on one seeded random set of
+             cotangents: rgb10_pack equal, the forward's colour sums
+             within 1e-5 abs + 1e-5 rel, its occlusion outputs (wdepth,
+             depth_err) bit for bit and the `valid` mask equal, the
+             backward bit for bit, non-finite values in the same places,
+             two backward runs bit-identical
   serve      EvalRenderer.render_one at 960x544 and 1920x1088: finite
-             outputs, exactly 5 blend forwards, 1 warp forward and no
-             backward per view
+             outputs, exactly 5 blend forwards, 1 rgb10 pack, 1 warp
+             forward and no backward per view
   train      10 IBGS training steps at 960x544 (render_geo + aggregation,
              iteration 13000), 1 launch of each kernel per step, finite,
              loss falling; then 1 colour-only step (iteration 5000): 1
-             launch of each blend kernel and no warp
+             launch of each blend kernel and no pack or warp
   timing     kernel / plain / serving / train-step times (CUDA events and
-             host clock), each kernel case's share of its bound, the tile
-             range lengths (p50, p99, max) per size, peak memory, device
-             busy share (torch.profiler)
+             host clock), each kernel case's share of its bound (the
+             warp forward's also with the pack), the warp kernels'
+             registers, spills and CTAs per SM, the tile range lengths
+             (p50, p99, max)
+             per size, peak memory, device busy share (torch.profiler)
   loop       the training driver (train/loop.train) on the bundle's 5
              views at 960x544 from its 91,307 splat centres as seed
              points: KNN init, a 300-iteration cut of the schedule with
@@ -64,7 +68,7 @@ Phases, one JSON line each; any failure makes the exit code 1:
              world size 1: the bundle at 960x544 as 2 bands of 272 rows
              and at 1920x1088 as 4, each through `rasterize`'s viewport
              band with the warp, stitched against the full frame; both
-             blend kernels and both warp kernels held to their plain
+             blend kernels and the three warp kernels held to their plain
              versions on the last 960x544 band (row0 272), whose loss
              reads the warped images; `gsp_full_train_step` on the train
              phase's step on its fast path and its generic exchange
@@ -108,9 +112,10 @@ Phases, one JSON line each; any failure makes the exit code 1:
              generic exchange (equal first losses); gsp_scaling's row at
              world size 1 (exact, no overflow).  Every value finite, every
              default config present, and every bench chain of k steps
-             launches exactly k blend and k warp forwards and, in train
-             mode, k of each backward
-  kernels    each kernel (blend_fwd, blend_bwd, warp_fwd, warp_bwd) with
+             launches exactly k blend forwards, k packs and k warp
+             forwards and, in train mode, k of each backward
+  kernels    each kernel (blend_fwd, blend_bwd, rgb10_pack, warp_fwd,
+             warp_bwd) with
              its launches on the serving, train, loop,
              eval, parallel, drivers and bench paths (the parallel count
              takes only the band renders, the two GSP steps and the CLI
@@ -163,8 +168,16 @@ OPS_PER_CONTRIB_PAIR = {0: 63, 1: 94}
 # forward projection 20, 1/(qz + eps) 2, pu / pv 6, w_eff 1, floors and
 # fractions 4, bilinear weights 6, three channels 21, sums 7; the backward
 # recomputes the first 39 and adds 78 for the channels' gradient terms, 2
-# for dbw, 12 for dq/dd, 10 for the projection Jacobian and 4 for dbd
+# for dbw, 12 for dq/dd, 10 for the projection Jacobian and 4 for dbd.
+# The rgb10 unpack is the table format's own cost, not the function's.
 WARP_OPS_PER_PAIR = {"warp_fwd": 67, "warp_bwd": 145}
+# the forward's occlusion test per (pixel, source): the median point's
+# transform 18, 1/(qz + eps) 2, pum / pvm 6, floors and fractions 4,
+# bilinear weights 6, the sample 7, |wdepth - qz|·inv 3; plus the point's
+# pdx·m, pdy·m (2) per pixel
+WARP_OCC_OPS, WARP_OCC_PIXEL_OPS = 46, 2
+# rgb10_pack per texel: clamp (2), scale, round, per channel
+PACK_OPS_PER_TEXEL = 12
 MODE_NAMES = {0: "color", 1: "render_geo", 2: "depth_only"}
 FIELDS = ("color", "normal", "final_t", "n_contrib", "buf_depth",
           "buf_weight", "buf_contrib")
@@ -275,7 +288,8 @@ def emit(obj):
 
 
 def launch_counts():
-    """Every kernel wrapper's launch count: the blend's and the warp's."""
+    """Every kernel wrapper's launch count: the blend's and the warp's
+    (rgb10_pack, warp_fwd, warp_bwd)."""
     from ibgs_tpu_torch.ops import blend, epilogue
     return {**blend.LAUNCHES, **epilogue.LAUNCHES}
 
@@ -293,8 +307,11 @@ def launches_since(before):
 
 
 def kernel_launches(blend_fwd, blend_bwd, warp_fwd, warp_bwd):
+    """The launch counts of a path; every render_geo render packs its
+    source colours once before its warp forward."""
     return {"blend_fwd": blend_fwd, "blend_bwd": blend_bwd,
-            "warp_fwd": warp_fwd, "warp_bwd": warp_bwd}
+            "rgb10_pack": warp_fwd, "warp_fwd": warp_fwd,
+            "warp_bwd": warp_bwd}
 
 
 def geo_steps(opt, n_train, first, last):
@@ -403,36 +420,55 @@ def gate_bwd(k1, k2, p, tag, failures):
             "bit_identical_repeat": same}, float(err.max())
 
 
-def warp_args(recorded):
-    """(the six tensor inputs, the intrinsics, the two cotangents) of a
-    recorded warp backward call, detached."""
-    *tensors, intr, g_wsc, g_wsum = recorded
-    return (tuple(t.detach() for t in tensors), tuple(intr),
-            (g_wsc.detach(), g_wsum.detach()))
+def warp_args(fwd, bwd):
+    """(the eight tensor inputs of the forward, the intrinsics, the two
+    cotangents) of a recorded warp forward and backward call, detached."""
+    *tensors, fx, fy, cx, cy = fwd
+    return (tuple(t.detach() for t in tensors), (fx, fy, cx, cy),
+            tuple(g.detach() for g in bwd[-2:]))
 
 
-def gate_warp_pair(args, intr, cts, tag, failures):
-    """Both warp kernels against their plain versions on one set of
-    inputs: the forward's wsc and ws within TOL_ABS + TOL_REL·|plain| (the
-    B-sum's order differs), the backward's dbd and dbw each within
-    BWD_TOL_REL x its largest plain value + BWD_TOL_ABS, non-finite values
-    in the same places, two backward runs bit-identical.  Returns (record,
-    {"warp_fwd": max abs error, "warp_bwd": max abs error})."""
+def same_bits(a, b) -> bool:
+    """Bit for bit, NaN in the same places (their payloads aside)."""
     import torch
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+def gate_warp_pair(args, intr, cts, tag, failures, images=None):
+    """The warp kernels against their plain versions on one set of inputs:
+    rgb10_pack of `images` (if given) equal to pack_rgb10_rows and to the
+    tables in `args`; the forward's wsc and ws within TOL_ABS +
+    TOL_REL·|plain| (the B-sum's order differs), its wdepth and depth_err
+    bit for bit and the `valid` mask (wdepth > 0, depth_err < the
+    threshold) equal; the backward's dbd and dbw bit for bit; non-finite
+    values in the same places, two backward runs bit-identical.  Returns
+    (record, {kernel: max abs error})."""
+    import torch
+    from ibgs_tpu_torch.config import OptimizationParams
     from ibgs_tpu_torch.ops import epilogue
+    rec, errs = {}, {"rgb10_pack": 0.0, "warp_fwd": 0.0, "warp_bwd": 0.0}
+    if images is not None:
+        packed = epilogue.rgb10_pack_cuda(images)
+        plain = epilogue.pack_rgb10_rows(images)
+        torch.cuda.synchronize()
+        bad = int((packed != plain).sum())
+        rec["rgb10_pack"] = {"mismatching_texels": bad,
+                             "equal_to_recorded_tables":
+                             torch.equal(packed, args[2])}
+        errs["rgb10_pack"] = float(bad)
+        if bad or not rec["rgb10_pack"]["equal_to_recorded_tables"]:
+            failures.append(f"{tag} rgb10_pack: {rec['rgb10_pack']}")
     k = epilogue.warp_fwd_cuda(*args, *intr)
     p = epilogue.warp_views_plain(*args, *intr)
-    k1 = epilogue.warp_bwd_cuda(*args, intr, *cts)
-    k2 = epilogue.warp_bwd_cuda(*args, intr, *cts)
-    pb = epilogue.warp_views_bwd_plain(*args, intr, *cts)
+    k1 = epilogue.warp_bwd_cuda(*args[:6], intr, *cts)
+    k2 = epilogue.warp_bwd_cuda(*args[:6], intr, *cts)
+    pb = epilogue.warp_views_bwd_plain(*args[:6], intr, *cts)
     torch.cuda.synchronize()
 
-    def bits(t):
-        return t.contiguous().view(torch.int32)
-
-    rec, errs = {}, {"warp_fwd": 0.0, "warp_bwd": 0.0}
     for kernel, names, got, want in (
-            ("warp_fwd", ("wsum_color", "wsum"), k, p),
+            ("warp_fwd", ("wsum_color", "wsum", "wdepth", "depth_err"), k, p),
             ("warp_bwd", ("dbd", "dbw"), k1, pb)):
         for i, (name, a, b) in enumerate(zip(names, got, want)):
             fin = torch.isfinite(b)
@@ -443,18 +479,26 @@ def gate_warp_pair(args, intr, cts, tag, failures):
             scale = float(b[fin].abs().max()) if err.numel() else 0.0
             r = {"max_abs_err": e, "max_abs_plain": scale,
                  "nonfinite": int((~fin).sum()),
-                 "bit_equal_plain": torch.equal(bits(a), bits(b))}
-            if kernel == "warp_fwd":
+                 "bit_equal_plain": same_bits(a, b)}
+            if name in ("wsum_color", "wsum"):
                 ok = bool((err <= TOL_ABS + TOL_REL * b[fin].abs()).all())
             else:
-                ok = e <= BWD_TOL_REL * scale + BWD_TOL_ABS
-                r["bit_identical_repeat"] = torch.equal(bits(a), bits(k2[i]))
+                ok = r["bit_equal_plain"]
+            if kernel == "warp_bwd":
+                r["bit_identical_repeat"] = same_bits(a, k2[i])
                 ok = ok and r["bit_identical_repeat"]
             if not (ok and same_nonfinite):
                 failures.append(f"{tag} {kernel} {name}: {r}, non-finite "
                                 f"in the same places {same_nonfinite}")
             rec[name] = r
             errs[kernel] = max(errs[kernel], e)
+    thr = OptimizationParams().depth_error_threshold
+    valid = [(o[2] > 0.0) & (o[3] < thr) for o in (k, p)]
+    rec["valid_mismatch_pixels"] = int((valid[0] != valid[1]).sum())
+    rec["valid_share"] = float(valid[1].float().mean())
+    if rec["valid_mismatch_pixels"]:
+        failures.append(f"{tag} warp_fwd: the valid mask differs at "
+                        f"{rec['valid_mismatch_pixels']} pixels")
     return rec, errs
 
 
@@ -1302,14 +1346,16 @@ def parallel_phase(d, dev, scenes, inputs, opt, rcfg, failures):
     if r0 != row0:
         failures.append(f"parallel: the band's backward ran at row0 {r0}")
     # the warp on the same band: its rays start at image row 272
-    wa, intr, wcts = warp_args(recorded["warp_bwd"][0])
+    wa, intr, wcts = warp_args(recorded["warp_fwd"][0],
+                               recorded["warp_bwd"][0])
     first_row = float(wa[5][0, 0]) * intr[1] + intr[3]
     if len(recorded["warp_fwd"]) != 1 or abs(first_row - row0) > 1e-3:
         failures.append(f"parallel: the band's warp ran "
                         f"{len(recorded['warp_fwd'])} times, its rays from "
                         f"row {first_row}")
-    kc["warp"], warp_err = gate_warp_pair(wa, intr, wcts,
-                                          "parallel: band warp", failures)
+    kc["warp"], warp_err = gate_warp_pair(
+        wa, intr, wcts, "parallel: band warp", failures,
+        images=recorded["rgb10_pack"][0][0])
     kc["max_abs_err"] = {"blend_fwd": fwd_err, "blend_bwd": bwd_err,
                          **warp_err}
     rec["band_kernels"] = kc
@@ -1322,25 +1368,31 @@ def plain_blend():
     card, so a driver runs its plain path on the same device and inputs."""
     from ibgs_tpu_torch.ops import blend, epilogue
     kernels = (blend.blend_fwd_cuda, blend.blend_bwd_cuda,
-               epilogue.warp_fwd_cuda, epilogue.warp_bwd_cuda)
+               epilogue.rgb10_pack_cuda, epilogue.warp_fwd_cuda,
+               epilogue.warp_bwd_cuda)
     blend.blend_fwd_cuda, blend.blend_bwd_cuda = (blend.blend_plain,
                                                   blend.blend_bwd_plain)
+    epilogue.rgb10_pack_cuda = epilogue.pack_rgb10_rows
     epilogue.warp_fwd_cuda = epilogue.warp_views_plain
     epilogue.warp_bwd_cuda = epilogue.warp_views_bwd_plain
     try:
         yield
     finally:
-        (blend.blend_fwd_cuda, blend.blend_bwd_cuda, epilogue.warp_fwd_cuda,
+        (blend.blend_fwd_cuda, blend.blend_bwd_cuda,
+         epilogue.rgb10_pack_cuda, epilogue.warp_fwd_cuda,
          epilogue.warp_bwd_cuda) = kernels
 
 
 @contextlib.contextmanager
 def recording():
-    """Record the arguments of every blend backward, warp forward and warp
-    backward launch while the block runs: yields {name: [args, ...]}."""
+    """Record the arguments of every blend backward, rgb10 pack, warp
+    forward and warp backward launch while the block runs: yields {name:
+    [args, ...]}."""
     from ibgs_tpu_torch.ops import blend, epilogue
-    seen = {"blend_bwd": [], "warp_fwd": [], "warp_bwd": []}
+    seen = {"blend_bwd": [], "rgb10_pack": [], "warp_fwd": [],
+            "warp_bwd": []}
     slots = ((blend, "blend_bwd_cuda", "blend_bwd"),
+             (epilogue, "rgb10_pack_cuda", "rgb10_pack"),
              (epilogue, "warp_fwd_cuda", "warp_fwd"),
              (epilogue, "warp_bwd_cuda", "warp_bwd"))
     kernels = [getattr(mod, attr) for mod, attr, _ in slots]
@@ -1978,7 +2030,8 @@ def main():
     def captured_bwd_args(wh, mode):
         """The blend-backward arguments of one real backward of the
         training objective (loss_and_grads) in `mode` and, in render_geo,
-        the warp backward's (inputs, intrinsics, cotangents)."""
+        the warp's (forward inputs, intrinsics, cotangents, source
+        images)."""
         sc = scenes[wh]
         state, src = train_in[wh]
         with recording() as seen:
@@ -1990,7 +2043,8 @@ def main():
         saved = type(saved)(*(getattr(saved, f).detach() for f in FIELDS))
         return ((feats.detach(), start, stop, *geom, saved,
                  tuple(c.detach() for c in cts), row0),
-                warp_args(seen["warp_bwd"][0]) if mode == 1 else None)
+                (*warp_args(seen["warp_fwd"][0], seen["warp_bwd"][0]),
+                 seen["rgb10_pack"][0][0]) if mode == 1 else None)
 
     captured = {(wh, mode): captured_bwd_args(wh, mode)
                 for wh in SIZES for mode in (1, 0)}
@@ -2025,18 +2079,20 @@ def main():
         rec["modes"][MODE_NAMES[mode]] = m
     emit(rec)
 
-    # ---- warp: both kernels vs plain at both sizes --------------------------
+    # ---- warp: the three kernels vs plain at both sizes --------------------
     rec = {"phase": "warp", "sizes": {}}
-    warp_max_abs_err = {"warp_fwd": 0.0, "warp_bwd": 0.0}
+    warp_max_abs_err = {"rgb10_pack": 0.0, "warp_fwd": 0.0, "warp_bwd": 0.0}
     gen = torch.Generator().manual_seed(4321)
     for wh in SIZES:
-        wa, intr, real_cts = warp_in[wh]
+        wa, intr, real_cts, images = warp_in[wh]
         rand_cts = tuple(torch.randn(c.shape, generator=gen).to(dev)
                          for c in real_cts)
-        r = {"buffer": wa[0].shape[0], "sources": list(wa[2].shape[:3])}
+        r = {"buffer": wa[0].shape[0], "sources": list(wa[2].shape[:3]),
+             "buffer_strides": list(wa[0].stride())}
         for name, cts in (("real", real_cts), ("random", rand_cts)):
-            r[name], errs = gate_warp_pair(wa, intr, cts,
-                                           f"warp {wh} {name}", failures)
+            r[name], errs = gate_warp_pair(
+                wa, intr, cts, f"warp {wh} {name}", failures,
+                images=images if name == "real" else None)
             for k, v in errs.items():
                 warp_max_abs_err[k] = max(warp_max_abs_err[k], v)
         rec["sizes"][f"{wh[0]}x{wh[1]}"] = r
@@ -2195,38 +2251,59 @@ def main():
 
     warp_cases = []
     for wh in SIZES:
-        wa, intr, cts = warp_in[wh]
+        wa, intr, cts, images = warp_in[wh]
         (B, H, W), (S, Hs, Ws) = wa[0].shape, wa[2].shape[:3]
-        dense = tuple(t.contiguous() for t in wa)
-        pairs = B * H * W * S
-        # each input read once, each output written once: the buffer's
-        # depths and weights, the S colour tables, transforms and rays;
-        # forward wsc + ws, backward their cotangents in and dbd + dbw out
-        in_bytes = 4 * (2 * B * H * W + S * Hs * Ws * 3 + S * 16 + 2 * H * W)
+        pairs, texels = B * H * W * S, S * Hs * Ws
+        # each input of a kernel read once, each output written once.  The
+        # pack: the float colours in, the footprint rows out.  The forward
+        # and the backward: the buffer's depths and weights, the colour
+        # tables at one 4-byte word per texel (the least that holds the
+        # 10-bit colours; the rows repeat each word four times, the
+        # design's own cost), transforms and rays; the forward also the
+        # median and the S depth maps in, wsc, ws, wdepth and depth_err
+        # out; the backward the cotangents of wsc and ws in, dbd and dbw
+        # out.  No byte is counted in two kernels' bounds.
+        in_bytes = 4 * (2 * B * H * W + texels + S * 16 + 2 * H * W)
+        fwd_bytes = in_bytes + 4 * (H * W + texels) + 4 * S * H * W * 6
+        fwd_ops = (pairs * WARP_OPS_PER_PAIR["warp_fwd"]
+                   + S * H * W * WARP_OCC_OPS + H * W * WARP_OCC_PIXEL_OPS)
         calls = {
-            "warp_fwd": (lambda a: epilogue.warp_fwd_cuda(*a, *intr),
+            "rgb10_pack": (lambda: epilogue.rgb10_pack_cuda(images),
+                           lambda: epilogue.pack_rgb10_rows(images),
+                           4 * texels * (3 + 4),
+                           texels * PACK_OPS_PER_TEXEL),
+            "warp_fwd": (lambda: epilogue.warp_fwd_cuda(*wa, *intr),
                          lambda: epilogue.warp_views_plain(*wa, *intr),
-                         in_bytes + 4 * S * H * W * 4,
-                         pairs * WARP_OPS_PER_PAIR["warp_fwd"]),
-            "warp_bwd": (lambda a: epilogue.warp_bwd_cuda(*a, intr, *cts),
-                         lambda: epilogue.warp_views_bwd_plain(*wa, intr,
-                                                               *cts),
+                         fwd_bytes, fwd_ops),
+            "warp_bwd": (lambda: epilogue.warp_bwd_cuda(*wa[:6], intr, *cts),
+                         lambda: epilogue.warp_views_bwd_plain(
+                             *wa[:6], intr, *cts),
                          in_bytes + 4 * S * H * W * 4 + 4 * 2 * B * H * W,
                          pairs * WARP_OPS_PER_PAIR["warp_bwd"])}
+        by_name = {}
         for name, (kernel, plain, nbytes, ops) in calls.items():
-            k_ms = cuda_ms(lambda: kernel(dense), 20)
-            w_ms = cuda_ms(lambda: kernel(wa), 20)
+            k_ms = cuda_ms(kernel, 20)
             p_ms = cuda_ms(plain, 1, warmup=0)
             t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / FP32_FLOP_S
-            warp_cases.append({
+            by_name[name] = {
                 "kernel": name, "size": f"{wh[0]}x{wh[1]}", "ms": k_ms,
-                "ms_with_layout_copies": w_ms, "plain_ms": p_ms,
-                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
                 "bound_share": max(t_bytes, t_ops) * 1e3 / k_ms,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes, "ops": ops, "pairs": pairs,
-                "sources": [S, Hs, Ws], "buffer": B})
-        del dense
+                "sources": [S, Hs, Ws], "buffer": B,
+                **_cuda.warp_info(name, B, S)}
+        # the pack and the forward together, from the float colours: the
+        # colours in once (the footprint rows are the design's own cost)
+        # and the forward's other bytes
+        fwd = by_name["warp_fwd"]
+        t_bytes = (fwd_bytes + 4 * texels * 2) / HBM_BYTES_S
+        t_ops = (fwd_ops + texels * PACK_OPS_PER_TEXEL) / FP32_FLOP_S
+        fwd["ms_with_pack"] = fwd["ms"] + by_name["rgb10_pack"]["ms"]
+        fwd["bound_ms_with_pack"] = max(t_bytes, t_ops) * 1e3
+        fwd["bound_share_with_pack"] = (fwd["bound_ms_with_pack"]
+                                        / fwd["ms_with_pack"])
+        warp_cases += by_name.values()
 
     serve_ms = {}
     for wh in SIZES:
@@ -2343,7 +2420,7 @@ def main():
             failures.append(f"{k} was not launched on the drivers path")
         if by_path["bench"] == 0:
             failures.append(f"{k} was not launched on the bench path")
-    for k in ("blend_fwd", "warp_fwd"):
+    for k in ("blend_fwd", "rgb10_pack", "warp_fwd"):
         if serve_launches[k] == 0:
             failures.append(f"{k} was not launched on the serving path")
         if eval_launches[k] == 0:
@@ -2373,13 +2450,15 @@ def main():
         line("blend_bwd", "ibgs_tpu_torch/ops/csrc/blend_bwd.cu",
              "ibgs_tpu/ops/blend_pallas.py:422", bwd_main, bwd_max_abs_err,
              bwd_cases),
-        # no single PyTorch call computes the warp: grid_sample has no
-        # per-entry weight, in-bounds mask, texel-0 rule or B-sum
+        # no single PyTorch call computes the warp (grid_sample has no
+        # per-entry weight, in-bounds mask, texel-0 rule or B-sum) or the
+        # rgb10 packing
         *(line(name, "ibgs_tpu_torch/ops/csrc/warp.cu",
                f"ibgs_tpu/ops/epilogue.py:{at}", warp_main[name],
                warp_max_abs_err[name],
                [c for c in warp_cases if c["kernel"] == name])
-          for name, at in (("warp_fwd", 219), ("warp_bwd", 286)))]})
+          for name, at in (("rgb10_pack", 152), ("warp_fwd", 219),
+                           ("warp_bwd", 286)))]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

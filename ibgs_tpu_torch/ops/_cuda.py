@@ -35,6 +35,7 @@ _lock = threading.Lock()
 _libs: dict = {}
 
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_c_ll = ctypes.c_longlong
 # feats, stride, tile_start, tile_stop, tiles_x, tiles_y, tile_h, tile_w,
 # splits_y, splits_x, fx, fy, cx, cy, row0, buffer_len, mode
 _HEAD = ([_c_ptr, _c_int, _c_ptr, _c_ptr] + [_c_int] * 6 + [_c_float] * 5
@@ -50,14 +51,17 @@ _SIGNATURES = {
                                  _c_int),
     "ibgs_blend_bwd_occupancy": ([_c_int] * 4 + [ctypes.POINTER(_c_int)] * 2,
                                  _c_int),
-    # bd, bw, tables, r2s, pdx, pdy, B, n_pix, S, Hs, Ws, fx, fy, cx, cy,
-    # wsc, ws, the stream
-    "ibgs_warp_fwd": ([_c_ptr] * 6 + [_c_int] * 5 + [_c_float] * 4
-                      + [_c_ptr] * 3, _c_int),
-    # bd, bw, tables, r2s, pdx, pdy, g_wsc, g_wsum, B, n_pix, S, Hs, Ws,
-    # fx, fy, cx, cy, dbd, dbw, the stream
-    "ibgs_warp_bwd": ([_c_ptr] * 8 + [_c_int] * 5 + [_c_float] * 4
-                      + [_c_ptr] * 3, _c_int),
+    # images, S, Hs, Ws, out, the stream
+    "ibgs_rgb10_pack": ([_c_ptr] + [_c_int] * 3 + [_c_ptr] * 2, _c_int),
+    # bd, bw, row stride, tables, r2s, pdx, pdy, median, depths, B, H, W, S,
+    # Hs, Ws, fx, fy, cx, cy, wsc, ws, wdepth, depth_err, the stream
+    "ibgs_warp_fwd": ([_c_ptr, _c_ptr, _c_ll] + [_c_ptr] * 6 + [_c_int] * 6
+                      + [_c_float] * 4 + [_c_ptr] * 5, _c_int),
+    # bd, bw, row stride, tables, r2s, pdx, pdy, g_wsc, g_wsum, B, H, W, S,
+    # Hs, Ws, fx, fy, cx, cy, dbd, dbw, the stream
+    "ibgs_warp_bwd": ([_c_ptr, _c_ptr, _c_ll] + [_c_ptr] * 6 + [_c_int] * 6
+                      + [_c_float] * 4 + [_c_ptr] * 3, _c_int),
+    "ibgs_warp_info": ([_c_int] * 3 + [ctypes.POINTER(_c_int)], _c_int),
     "ibgs_cuda_error_string": ([_c_int], ctypes.c_char_p),
 }
 
@@ -168,29 +172,62 @@ def blend_bwd(feats, tile_start, tile_stop, tiles_x, tiles_y, tile_h,
         workspace.data_ptr(), stream)
 
 
-def warp_fwd(bd, bw, tables, r2s, pdx, pdy, intr, wsc, ws, stream) -> int:
-    """Launch ibgs_warp_fwd: bd, bw (B, H, W), tables (S, Hs, Ws, 3), r2s
-    (S, 4, 4), pdx, pdy (H, W), all contiguous float32, `intr` (fx, fy,
-    cx, cy); writes wsc (S, H, W, 3) and ws (S, H, W).  Returns the CUDA
-    error code of the launch (0 = success)."""
-    S, Hs, Ws = tables.shape[0], tables.shape[1], tables.shape[2]
-    return load("warp").ibgs_warp_fwd(
-        bd.data_ptr(), bw.data_ptr(), tables.data_ptr(), r2s.data_ptr(),
-        pdx.data_ptr(), pdy.data_ptr(), bd.shape[0], pdx.numel(), S, Hs, Ws,
-        *intr, wsc.data_ptr(), ws.data_ptr(), stream)
+def rgb10_pack(images, out, stream, source="warp") -> int:
+    """Launch ibgs_rgb10_pack: images (S, Hs, Ws, 3) contiguous float32 into
+    `out`, (S, Hs, Ws, 4) int32 footprint rows.  `source`: the library
+    (a name in SOURCES).  Returns the CUDA error code of the launch (0 =
+    success)."""
+    S, Hs, Ws = images.shape[:3]
+    return load(source).ibgs_rgb10_pack(images.data_ptr(), S, Hs, Ws,
+                                        out.data_ptr(), stream)
 
 
-def warp_bwd(bd, bw, tables, r2s, pdx, pdy, intr, g_wsc, g_wsum, dbd, dbw,
-             stream) -> int:
-    """Launch ibgs_warp_bwd: the forward's inputs and the cotangents g_wsc
-    (S, H, W, 3), g_wsum (S, H, W), all contiguous float32; writes dbd, dbw
-    (B, H, W).  Returns the CUDA error code of the launch."""
-    S, Hs, Ws = tables.shape[0], tables.shape[1], tables.shape[2]
-    return load("warp").ibgs_warp_bwd(
-        bd.data_ptr(), bw.data_ptr(), tables.data_ptr(), r2s.data_ptr(),
-        pdx.data_ptr(), pdy.data_ptr(), g_wsc.data_ptr(), g_wsum.data_ptr(),
-        bd.shape[0], pdx.numel(), S, Hs, Ws, *intr, dbd.data_ptr(),
+def warp_fwd(bd, bw, row_stride, tables, r2s, pdx, pdy, median, depths,
+             intr, outs, stream, source="warp") -> int:
+    """Launch ibgs_warp_fwd: bd, bw (B, H, W) views of (H, W, B) buffers of
+    `row_stride` floats per row, tables (S, Hs, Ws, 4) int32 footprint
+    rows, r2s (S, 4, 4), pdx, pdy, median (H, W), depths (S, Hs, Ws),
+    contiguous, `intr` (fx, fy, cx, cy); writes `outs` = (wsc (S, H, W,
+    3), ws, wdepth, depth_err (S, H, W)).  Returns the CUDA error code of
+    the launch."""
+    B, H, W = bd.shape
+    S, Hs, Ws = tables.shape[:3]
+    return load(source).ibgs_warp_fwd(
+        bd.data_ptr(), bw.data_ptr(), row_stride, tables.data_ptr(),
+        r2s.data_ptr(), pdx.data_ptr(), pdy.data_ptr(), median.data_ptr(),
+        depths.data_ptr(), B, H, W, S, Hs, Ws, *intr,
+        *(t.data_ptr() for t in outs), stream)
+
+
+def warp_bwd(bd, bw, row_stride, tables, r2s, pdx, pdy, intr, g_wsc, g_wsum,
+             dbd, dbw, stream, source="warp") -> int:
+    """Launch ibgs_warp_bwd: the forward's buffers, tables, transforms and
+    rays and the contiguous cotangents g_wsc (S, H, W, 3), g_wsum (S, H,
+    W); writes dbd, dbw, contiguous (H, W, B).  Returns the CUDA error code
+    of the launch."""
+    B, H, W = bd.shape
+    S, Hs, Ws = tables.shape[:3]
+    return load(source).ibgs_warp_bwd(
+        bd.data_ptr(), bw.data_ptr(), row_stride, tables.data_ptr(),
+        r2s.data_ptr(), pdx.data_ptr(), pdy.data_ptr(), g_wsc.data_ptr(),
+        g_wsum.data_ptr(), B, H, W, S, Hs, Ws, *intr, dbd.data_ptr(),
         dbw.data_ptr(), stream)
+
+
+def warp_info(kernel: str, B: int, S: int, source="warp") -> dict:
+    """Registers, local (spill) bytes per thread, CTAs one SM holds at once
+    and the CTA's width and height in threads of the warp kernel `kernel`
+    ("warp_fwd", "warp_bwd" or "rgb10_pack") as the port launches it for B
+    buffer entries and S sources (cudaFuncGetAttributes,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    out = (_c_int * 5)()
+    which = ("warp_fwd", "warp_bwd", "rgb10_pack").index(kernel)
+    err = load(source).ibgs_warp_info(which, B, S, out)
+    if err != 0:
+        raise RuntimeError(f"{kernel} attribute query failed: "
+                           f"{error_string(err)} ({err})")
+    return dict(zip(("registers", "local_bytes", "ctas_per_sm", "cta_w",
+                     "cta_h"), out))
 
 
 def occupancy(name: str, mode: int, buffer_len: int, sub_h: int,

@@ -13,9 +13,15 @@ the hand-written VJP of `_WarpViews`); the source views, `camera_ray`,
 `cam_feat`, `min_depth_diff`, `valid_src_weight` and the occlusion test
 carry no gradient.
 
-The warp runs as two hand-written CUDA kernels on a card (csrc/warp.cu:
-`warp_fwd_cuda`, `warp_bwd_cuda`, counted in LAUNCHES) and as its plain
-PyTorch versions on the CPU (`warp_views_plain`, `warp_views_bwd_plain`).
+The source colours go into the warp as the JAX package's rgb10 tables:
+each texel's 2x2 footprint of int32 words, 10 bits per channel, as one
+16-byte row (`pack_rgb10_rows`, the layout of its
+`pack_bilinear_corners_rgb10`).  On a card the packing and the warp run as
+three hand-written CUDA kernels (csrc/warp.cu: `rgb10_pack_cuda`,
+`warp_fwd_cuda`, which also takes the occlusion test's depth sample, and
+`warp_bwd_cuda`, counted in LAUNCHES; the warp reads the blend's (H, W, B)
+buffers in place); on the CPU as their plain PyTorch versions
+(`pack_rgb10_rows`, `warp_views_plain`, `warp_views_bwd_plain`).
 """
 from __future__ import annotations
 
@@ -29,8 +35,10 @@ from ibgs_tpu_torch.ops.preprocess import to_i32
 
 EPS = 1.0e-8
 RGB10_SCALE = 1023.0
-# warp kernel launches (counted by the wrappers where they launch)
-LAUNCHES = {"warp_fwd": 0, "warp_bwd": 0}
+# kernel launches (counted by the wrappers where they launch)
+LAUNCHES = {"rgb10_pack": 0, "warp_fwd": 0, "warp_bwd": 0}
+# the kernels keep the S transforms in shared memory (48 bytes each)
+MAX_SOURCES = 1024
 
 
 @dataclasses.dataclass
@@ -91,11 +99,31 @@ def bilinear_sample(img: torch.Tensor, u: torch.Tensor,
             + (1 - fu) * fv * i10 + fu * fv * i11)
 
 
-def quantize_rgb10(img: torch.Tensor) -> torch.Tensor:
-    """Colours on the 10-bit grid of the JAX package's packed colour tables:
-    round(clip(x, 0, 1)·1023) · (1/1023), in float32."""
-    q = torch.round(torch.clamp(img, 0.0, 1.0) * RGB10_SCALE)
-    return q * (1.0 / RGB10_SCALE)
+def pack_rgb10(img: torch.Tensor) -> torch.Tensor:
+    """(..., 3) colours → (...) int32 words of 10 bits per channel, the JAX
+    package's colour tables: q = round(clip(x, 0, 1)·1023) per channel (NaN
+    → 0), r << 20 | g << 10 | b."""
+    q = to_i32(torch.round(torch.clamp(img, 0.0, 1.0) * RGB10_SCALE))
+    return (q[..., 0] << 20) | (q[..., 1] << 10) | q[..., 2]
+
+
+def pack_rgb10_rows(images: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, 3) colours → (..., H, W, 4) int32: each texel's 2x2
+    clamp-to-edge footprint of `pack_rgb10` words [I(y, x), I(y, x+1),
+    I(y+1, x), I(y+1, x+1)], the rows of the JAX package's
+    `pack_bilinear_corners_rgb10`."""
+    p = pack_rgb10(images)
+    right = torch.cat([p[..., 1:], p[..., -1:]], dim=-1)
+    down = torch.cat([p[..., 1:, :], p[..., -1:, :]], dim=-2)
+    downright = torch.cat([right[..., 1:, :], right[..., -1:, :]], dim=-2)
+    return torch.stack([p, right, down, downright], dim=-1)
+
+
+def unpack_rgb10(words: torch.Tensor) -> torch.Tensor:
+    """int32 rgb10 words → (..., 3) float32 colours q · (1/1023)."""
+    q = torch.stack([(words >> 20) & 1023, (words >> 10) & 1023,
+                     words & 1023], dim=-1)
+    return q.to(torch.float32) * (1.0 / RGB10_SCALE)
 
 
 def _proj_view(bd, r2s_s, pdx, pdy, fx, fy, cx, cy, Hs, Ws):
@@ -115,21 +143,55 @@ def _proj_view(bd, r2s_s, pdx, pdy, fx, fy, cx, cy, Hs, Ws):
 
 
 def _warp_corners(tables_s, pu, pv, w_eff, Hs, Ws):
-    """The four clamp-to-edge corner colours (…, 3) and the fractional
+    """The four clamp-to-edge corner colours (…, 3), unpacked from the
+    footprint row of the (Hs, Ws, 4) rgb10 table, and the fractional
     offsets of the bilinear sample; zero-weight entries read texel 0, as
     the JAX package does."""
     live = w_eff > 0.0
     zero = torch.zeros((), dtype=torch.long, device=pu.device)
-    corners = _corners(tables_s, torch.where(live, _floor_index(pu, Ws), zero),
-                       torch.where(live, _floor_index(pv, Hs), zero))
-    return corners, pu - torch.floor(pu), pv - torch.floor(pv)
+    x0 = torch.where(live, _floor_index(pu, Ws), zero)
+    y0 = torch.where(live, _floor_index(pv, Hs), zero)
+    rows = tables_s.reshape(Hs * Ws, 4)[y0 * Ws + x0]
+    return (tuple(unpack_rgb10(rows[..., k]) for k in range(4)),
+            pu - torch.floor(pu), pv - torch.floor(pv))
 
 
-def warp_views_plain(bd, bw, tables, r2s, pdx, pdy, fx, fy, cx, cy):
+def _occlusion(median, depths, r2s, pdx, pdy, fx, fy, cx, cy):
+    """The occlusion test's depth sample of the median point (pdx·m,
+    pdy·m, m) in every source: its source depth `wdepth` (S, H, W), 0 where
+    the point falls outside [0, W-1] x [0, Hs-1] (W the rendered view's
+    width, as the JAX package bounds it), and `depth_err` = |wdepth - qz| /
+    (qz + 1e-8)."""
+    S, Hs = depths.shape[0], depths.shape[1]
+    W = pdx.shape[1]
+    mx, my, mz = (pdx * median)[None], (pdy * median)[None], median[None]
+
+    def xform_m(M, i):
+        return (M[:, i, 0][:, None, None] * mx + M[:, i, 1][:, None, None] * my
+                + M[:, i, 2][:, None, None] * mz + M[:, i, 3][:, None, None])
+
+    qmx, qmy, qmz = xform_m(r2s, 0), xform_m(r2s, 1), xform_m(r2s, 2)
+    inv_zm = 1.0 / (qmz + EPS)
+    pum = qmx * fx * inv_zm + cx
+    pvm = qmy * fy * inv_zm + cy
+    inbm = (pum >= 0.0) & (pum <= W - 1.0) & (pvm >= 0.0) & (pvm <= Hs - 1.0)
+    wdepth = torch.stack([bilinear_sample(depths[s], pum[s], pvm[s])
+                          for s in range(S)], dim=0)
+    wdepth = torch.where(inbm, wdepth, 0.0)
+    depth_err = torch.abs(wdepth - qmz) * inv_zm
+    return wdepth, depth_err
+
+
+def warp_views_plain(bd, bw, tables, r2s, pdx, pdy, median, depths, fx, fy,
+                     cx, cy):
     """Reproject every buffer entry into each source view and accumulate
-    weighted bilinear colours.  bd, bw: (B, H, W); tables: (S, Hs, Ws, 3)
-    rgb10-quantised source colours.  Returns (S, H, W, 3) weighted colour
-    sums and (S, H, W) weight sums.  Differentiable by torch autograd."""
+    weighted bilinear colours; sample each source's depth at the median
+    point.  bd, bw: (B, H, W); tables: (S, Hs, Ws, 4) int32 rgb10
+    footprint rows of the source colours (`pack_rgb10_rows`); median:
+    (H, W); depths: (S, Hs, Ws) source depth maps.  Returns (S, H, W, 3)
+    weighted colour sums, (S, H, W) weight sums and the occlusion test's
+    `wdepth` and `depth_err` (S, H, W).  The colour sums are
+    differentiable by torch autograd."""
     S, Hs, Ws = tables.shape[0], tables.shape[1], tables.shape[2]
     wsc, ws = [], []
     for s in range(S):
@@ -143,7 +205,9 @@ def warp_views_plain(bd, bw, tables, r2s, pdx, pdy, fx, fy, cx, cy):
                + (1 - fu) * fv * c10 + fu * fv * c11)       # (B,H,W,3)
         wsc.append((col * w_eff[..., None]).sum(0))
         ws.append(w_eff.sum(0))
-    return torch.stack(wsc, 0), torch.stack(ws, 0)
+    wdepth, depth_err = _occlusion(median, depths, r2s, pdx, pdy, fx, fy,
+                                   cx, cy)
+    return torch.stack(wsc, 0), torch.stack(ws, 0), wdepth, depth_err
 
 
 def warp_views_bwd_plain(bd, bw, tables, r2s, pdx, pdy, intr, g_wsc,
@@ -154,7 +218,8 @@ def warp_views_bwd_plain(bd, bw, tables, r2s, pdx, pdy, intr, g_wsc,
     gradient.  It recomputes the projection and the corner gather from the
     inputs instead of saving the (B, H, W, 3) corner slabs of every source.
     `intr` is (fx, fy, cx, cy); g_wsc (S, H, W, 3), g_wsum (S, H, W) are the
-    cotangents of the two outputs.  Returns (dbd, dbw), each (B, H, W)."""
+    cotangents of the two colour outputs.  Returns (dbd, dbw), each (B, H,
+    W)."""
     fx, fy, cx, cy = intr
     S, Hs, Ws = tables.shape[0], tables.shape[1], tables.shape[2]
     dbd = torch.zeros_like(bd)
@@ -192,77 +257,146 @@ def warp_views_bwd_plain(bd, bw, tables, r2s, pdx, pdy, intr, g_wsc,
     return dbd, dbw
 
 
-def _check_warp(name, bd, bw, tables, r2s, pdx, pdy, cts=()):
-    """Shapes, dtypes and devices the warp kernels take; raises ValueError."""
-    if bd.ndim != 3 or tables.ndim != 4 or tables.shape[3] != 3 \
+def _check_warp(name, bd, bw, tables, r2s, pdx, pdy, extra=(), cts=()):
+    """Shapes, dtypes, devices and layouts the warp kernels take; raises
+    ValueError.  bd and bw must be (B, H, W) views of (H, W, B) buffers
+    (read in place), `extra` (name, tensor, shape) triples of further
+    float32 inputs; every input but the cotangents `cts` (g_wsc, g_wsum)
+    contiguous."""
+    if bd.ndim != 3 or tables.ndim != 4 or tables.shape[3] != 4 \
             or min(tables.shape[1:3]) < 1:
         raise ValueError(f"{name}: bd must be (B, H, W) and tables (S, Hs, "
-                         f"Ws, 3) with Hs, Ws >= 1, got {tuple(bd.shape)} "
+                         f"Ws, 4) with Hs, Ws >= 1, got {tuple(bd.shape)} "
                          f"and {tuple(tables.shape)}")
-    (B, H, W), S = bd.shape, tables.shape[0]
-    for arg, t, shape in (("bd", bd, (B, H, W)), ("bw", bw, (B, H, W)),
-                          ("tables", tables, tuple(tables.shape)),
-                          ("r2s", r2s, (S, 4, 4)), ("pdx", pdx, (H, W)),
-                          ("pdy", pdy, (H, W)),
-                          *zip(("g_wsc", "g_wsum"), cts,
-                               ((S, H, W, 3), (S, H, W)))):
-        if t.dtype != torch.float32 or tuple(t.shape) != shape \
+    (B, H, W), (S, Hs, Ws, _) = bd.shape, tables.shape
+    f32, i32 = torch.float32, torch.int32
+    named = (("bd", bd, (B, H, W), f32), ("bw", bw, (B, H, W), f32),
+             ("tables", tables, (S, Hs, Ws, 4), i32),
+             ("r2s", r2s, (S, 4, 4), f32), ("pdx", pdx, (H, W), f32),
+             ("pdy", pdy, (H, W), f32),
+             *((n, t, shape, f32) for n, t, shape in extra),
+             *zip(("g_wsc", "g_wsum"), cts, ((S, H, W, 3), (S, H, W)),
+                  (f32, f32)))
+    for arg, t, shape, dtype in named:
+        if t.dtype != dtype or tuple(t.shape) != shape \
                 or t.device != bd.device:
-            raise ValueError(f"{name}: {arg} must be float32 {shape} on "
+            raise ValueError(f"{name}: {arg} must be {dtype} {shape} on "
                              f"{bd.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
     if bd.device.type != "cuda":
         raise ValueError(f"{name}: tensors must be on a CUDA device, got "
                          f"{bd.device}")
+    if S > MAX_SOURCES:
+        raise ValueError(f"{name}: at most {MAX_SOURCES} sources, got {S}")
+    if bd.stride() != bw.stride() or not _in_place(bd):
+        raise ValueError(f"{name}: bd and bw must be (B, H, W) views of "
+                         f"(H, W, B) buffers with one row stride, got "
+                         f"strides {bd.stride()} and {bw.stride()}")
+    for arg, t, *_ in named[2:len(named) - len(cts)]:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
 
 
-def warp_fwd_cuda(bd, bw, tables, r2s, pdx, pdy, fx, fy, cx, cy):
-    """`warp_views_plain` (same arguments and outputs) as the CUDA forward
-    kernel (csrc/warp.cu) on the current stream, one count in LAUNCHES.
-    The permuted (B, H, W) views of the blend's buffers are copied to
-    contiguous tensors first."""
+def _in_place(bd) -> bool:
+    """Whether (B, H, W) `bd` reads entry b of pixel (y, x) at y·row_stride
+    + x·B + b, the layout of an (H, W, B) buffer (rows may be padded)."""
+    B, H, W = bd.shape
+    return ((B == 1 or bd.stride(0) == 1) and (W == 1 or bd.stride(2) == B)
+            and (H == 1 or bd.stride(1) >= W * B))
+
+
+def _row_stride(bd) -> int:
+    B, H, W = bd.shape
+    return bd.stride(1) if H > 1 else W * B
+
+
+def _launched(name, err):
+    from ibgs_tpu_torch.ops import _cuda
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{_cuda.error_string(err)} ({err})")
+    LAUNCHES[name] += 1
+
+
+def rgb10_pack_cuda(images):
+    """`pack_rgb10_rows` of (S, Hs, Ws, 3) contiguous float32 source
+    colours as the CUDA kernel (csrc/warp.cu) on the current stream, one
+    count in LAUNCHES.  Returns (S, Hs, Ws, 4) int32."""
     from ibgs_tpu_torch.ops import _cuda
 
-    _check_warp("warp_fwd_cuda", bd, bw, tables, r2s, pdx, pdy)
-    _, H, W = bd.shape
-    S = tables.shape[0]
+    if images.ndim != 4 or images.shape[3] != 3 \
+            or images.dtype != torch.float32 or not images.is_contiguous():
+        raise ValueError(f"rgb10_pack_cuda: images must be contiguous "
+                         f"float32 (S, Hs, Ws, 3), got {images.dtype} "
+                         f"{tuple(images.shape)}")
+    if images.device.type != "cuda":
+        raise ValueError(f"rgb10_pack_cuda: images must be on a CUDA "
+                         f"device, got {images.device}")
+    dev = images.device
+    out = torch.empty(*images.shape[:3], 4, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _cuda.rgb10_pack(images, out,
+                               torch.cuda.current_stream(dev).cuda_stream)
+    _launched("rgb10_pack", err)
+    return out
+
+
+def rgb10_tables(images):
+    """The warp's (S, Hs, Ws, 4) int32 colour tables of (S, Hs, Ws, 3)
+    source images: `pack_rgb10_rows` on CPU tensors, `rgb10_pack_cuda` on
+    CUDA tensors."""
+    if images.device.type == "cpu":
+        return pack_rgb10_rows(images)
+    return rgb10_pack_cuda(images)
+
+
+def warp_fwd_cuda(bd, bw, tables, r2s, pdx, pdy, median, depths, fx, fy,
+                  cx, cy):
+    """`warp_views_plain` (same arguments and outputs) as the CUDA forward
+    kernel (csrc/warp.cu) on the current stream, one count in LAUNCHES.
+    bd and bw are read in place as (B, H, W) views of the blend's (H, W,
+    B) buffers."""
+    from ibgs_tpu_torch.ops import _cuda
+
+    B, H, W = bd.shape
+    S, Hs, Ws = tables.shape[:3]
+    _check_warp("warp_fwd_cuda", bd, bw, tables, r2s, pdx, pdy,
+                (("median", median, (H, W)), ("depths", depths, (S, Hs, Ws))))
     dev = bd.device
-    wsc = torch.empty(S, H, W, 3, dtype=torch.float32, device=dev)
-    ws = torch.empty(S, H, W, dtype=torch.float32, device=dev)
+    outs = (torch.empty(S, H, W, 3, dtype=torch.float32, device=dev),
+            *(torch.empty(S, H, W, dtype=torch.float32, device=dev)
+              for _ in range(3)))
     with torch.cuda.device(dev):
         err = _cuda.warp_fwd(
-            *(t.contiguous() for t in (bd, bw, tables, r2s, pdx, pdy)),
-            (float(fx), float(fy), float(cx), float(cy)), wsc, ws,
+            bd, bw, _row_stride(bd), tables, r2s, pdx, pdy, median, depths,
+            (float(fx), float(fy), float(cx), float(cy)), outs,
             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"warp_fwd kernel launch failed: "
-                           f"{_cuda.error_string(err)} ({err})")
-    LAUNCHES["warp_fwd"] += 1
-    return wsc, ws
+    _launched("warp_fwd", err)
+    return outs
 
 
 def warp_bwd_cuda(bd, bw, tables, r2s, pdx, pdy, intr, g_wsc, g_wsum):
     """`warp_views_bwd_plain` (same arguments and outputs) as the CUDA
     backward kernel (csrc/warp.cu) on the current stream, one count in
-    LAUNCHES.  Returns contiguous (dbd, dbw)."""
+    LAUNCHES.  Writes the gradients in (H, W, B) and returns their (B, H,
+    W) views."""
     from ibgs_tpu_torch.ops import _cuda
 
     _check_warp("warp_bwd_cuda", bd, bw, tables, r2s, pdx, pdy,
-                (g_wsc, g_wsum))
+                cts=(g_wsc, g_wsum))
+    B, H, W = bd.shape
     dev = bd.device
-    dbd = torch.empty(bd.shape, dtype=torch.float32, device=dev)
-    dbw = torch.empty(bd.shape, dtype=torch.float32, device=dev)
+    dbd = torch.empty(H, W, B, dtype=torch.float32, device=dev)
+    dbw = torch.empty(H, W, B, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        # autograd may hand an expanded cotangent: copied only then
         err = _cuda.warp_bwd(
-            *(t.contiguous() for t in (bd, bw, tables, r2s, pdx, pdy)),
+            bd, bw, _row_stride(bd), tables, r2s, pdx, pdy,
             tuple(float(v) for v in intr), g_wsc.contiguous(),
             g_wsum.contiguous(), dbd, dbw,
             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"warp_bwd kernel launch failed: "
-                           f"{_cuda.error_string(err)} ({err})")
-    LAUNCHES["warp_bwd"] += 1
-    return dbd, dbw
+    _launched("warp_bwd", err)
+    return dbd.permute(2, 0, 1), dbw.permute(2, 0, 1)
 
 
 class _WarpViews(torch.autograd.Function):
@@ -270,29 +404,33 @@ class _WarpViews(torch.autograd.Function):
     with the JAX package's hand-derived VJP.  CPU tensors go through the
     plain versions (`warp_views_plain`, `warp_views_bwd_plain`), CUDA
     tensors through the kernels (`warp_fwd_cuda`, `warp_bwd_cuda`), which
-    raise on what they do not take.  The source tables, transforms and
-    rays get no gradient."""
+    raise on what they do not take.  The source tables, transforms, rays,
+    median and depth maps get no gradient; `wdepth` and `depth_err` carry
+    none."""
 
     @staticmethod
-    def forward(ctx, bd, bw, tables, r2s, pdx, pdy, intr):
+    def forward(ctx, bd, bw, tables, r2s, pdx, pdy, median, depths, intr):
         ctx.save_for_backward(bd, bw, tables, r2s, pdx, pdy)
         ctx.intr = intr
         fwd = warp_views_plain if bd.device.type == "cpu" else warp_fwd_cuda
-        return fwd(bd, bw, tables, r2s, pdx, pdy, *intr)
+        out = fwd(bd, bw, tables, r2s, pdx, pdy, median, depths, *intr)
+        ctx.mark_non_differentiable(out[2], out[3])
+        return out
 
     @staticmethod
-    def backward(ctx, g_wsc, g_wsum):
+    def backward(ctx, g_wsc, g_wsum, _g_wdepth, _g_depth_err):
         saved = ctx.saved_tensors
         bwd = (warp_views_bwd_plain if saved[0].device.type == "cpu"
                else warp_bwd_cuda)
         dbd, dbw = bwd(*saved, ctx.intr, g_wsc, g_wsum)
-        return dbd, dbw, None, None, None, None, None
+        return (dbd, dbw) + (None,) * 7
 
 
-def warp_views(bd, bw, tables, r2s, pdx, pdy, fx, fy, cx, cy):
+def warp_views(bd, bw, tables, r2s, pdx, pdy, median, depths, fx, fy, cx,
+               cy):
     """`warp_views_plain` (same arguments and outputs), differentiable
     w.r.t. `bd` and `bw` through the hand-written VJP."""
-    return _WarpViews.apply(bd, bw, tables, r2s, pdx, pdy,
+    return _WarpViews.apply(bd, bw, tables, r2s, pdx, pdy, median, depths,
                             (fx, fy, cx, cy))
 
 
@@ -309,11 +447,11 @@ def ibr_epilogue(blend: BlendOutputs, cam: Camera, src: SourceViews,
     and the warp use those rows' pixel centres; the sources are full
     frames."""
     H, W = blend.final_t.shape
-    S, Hs, Ws = src.images.shape[0], src.images.shape[1], src.images.shape[2]
+    S = src.images.shape[0]
     dev = blend.final_t.device
     # the source views are constants
-    images = src.images.detach()
-    depths = src.depths.detach()
+    images = src.images.detach().contiguous()
+    depths = src.depths.detach().contiguous()
     r2s = src.ref_to_src.detach()
     src_pos = src.cam_pos.detach()
 
@@ -326,13 +464,13 @@ def ibr_epilogue(blend: BlendOutputs, cam: Camera, src: SourceViews,
     bw = blend.buf_weight.permute(2, 0, 1)   # (B, H, W)
     bd = blend.buf_depth.permute(2, 0, 1)
     used = bw != 0.0
-
-    tables = quantize_rgb10(images)
-    wsum_color, wsum = warp_views(bd, bw, tables, r2s, pdx, pdy,
-                                  cam.fx, cam.fy, cam.cx, cam.cy)
-
     tot_w = (bw * used).sum(0)
     median = (bw * bd).sum(0) / (tot_w + EPS)
+
+    # the warp and the occlusion test's depth sample (no gradient) in one
+    wsum_color, wsum, wdepth, depth_err = warp_views(
+        bd, bw, rgb10_tables(images), r2s, pdx, pdy, median.detach(),
+        depths, cam.fx, cam.fy, cam.cx, cam.cy)
 
     # median contributor window (min/max over used entries, seeded with
     # slot 0)
@@ -354,24 +492,6 @@ def ibr_epilogue(blend: BlendOutputs, cam: Camera, src: SourceViews,
     ray = (ray * torch.rsqrt((ray * ray).sum(-1, keepdim=True) + EPS)
            ).detach()
     mpt_world_c = mpt_world.detach()
-
-    # occlusion test of the median point per source (no gradient)
-    mpt_c = mpt.detach()
-    mx, my, mz = mpt_c[..., 0][None], mpt_c[..., 1][None], mpt_c[..., 2][None]
-
-    def xform_m(M, i):
-        return (M[:, i, 0][:, None, None] * mx + M[:, i, 1][:, None, None] * my
-                + M[:, i, 2][:, None, None] * mz + M[:, i, 3][:, None, None])
-
-    qmx, qmy, qmz = xform_m(r2s, 0), xform_m(r2s, 1), xform_m(r2s, 2)
-    inv_zm = 1.0 / (qmz + EPS)
-    pum = qmx * cam.fx * inv_zm + cam.cx
-    pvm = qmy * cam.fy * inv_zm + cam.cy
-    inbm = (pum >= 0.0) & (pum <= W - 1.0) & (pvm >= 0.0) & (pvm <= Hs - 1.0)
-    wdepth = torch.stack([bilinear_sample(depths[s], pum[s], pvm[s])
-                          for s in range(S)], dim=0)
-    wdepth = torch.where(inbm, wdepth, 0.0)
-    depth_err = torch.abs(wdepth - qmz) * inv_zm             # (S,H,W)
 
     s_ids = torch.arange(S, dtype=torch.int32, device=dev)[:, None, None]
     valid = (wdepth > 0.0) & (depth_err < depth_error_threshold) \

@@ -19,13 +19,17 @@ longest-first order), ranges that end inside a batch, bit-identical
 forward repeats, and a backward tile whose warps stop at very different
 positions.
 
-The warp kernels (csrc/warp.cu) are held to `warp_views_plain` and
-`warp_views_bwd_plain` with the same two tolerances (the forward sums its
-B entries in another order; each backward gradient is per entry) and with
-non-finite values in the same places, on seeded buffers of B = 4 and 8
-entries and S = 1 and 5 sources smaller and larger than the view, all-zero
-weights, projections wholly out of bounds, one NaN source texel and a band
-at row0 272.
+The warp kernels (csrc/warp.cu) are held to their plain versions: the
+rgb10 pack and the backward bit for bit, the forward's occlusion outputs
+bit for bit (so the `valid` mask is equal at every pixel) and its colour
+sums at the forward tolerance (the B entries are summed in another order),
+non-finite values in the same places; on the (B, H, W) views of seeded
+(H, W, B) buffers of B = 1, 3, 4, 8 and 12 entries (every template
+instantiation: the slots of B <= 4 and B <= 8 and the generic loop) and S
+= 1 and 5 sources smaller and larger than the view, all-zero weights,
+projections wholly out of bounds, NaN source texels (finite outputs: the
+pack maps NaN to 0), a NaN buffer depth and source depth, a band at row0
+272 and buffers with padded rows.
 """
 import dataclasses
 import zlib
@@ -349,31 +353,41 @@ def test_bwd_kernel_empty_and_bad_inputs():
 # ---------------------------------------------------------------- the warp
 
 # (B, S, source size) and the special cases: all-zero weights, projections
-# wholly out of bounds, one NaN source texel, a band at row0 272
-WARP_CASES = [(b, s_, src) for b in (4, 8) for s_ in (1, 5)
+# wholly out of bounds, NaN source texels, a NaN buffer depth and source
+# depth, a band at row0 272, buffers whose rows are padded (a crop)
+WARP_CASES = [(b, s_, src) for b in (1, 3, 4, 8, 12) for s_ in (1, 5)
               for src in ("smaller", "larger")] + [
     (4, 5, "zero_weights"), (4, 5, "out_of_bounds"), (4, 5, "nan_texel"),
-    (4, 5, "row0_272")]
+    (4, 5, "nan_depth"), (4, 5, "row0_272"), (4, 5, "padded_rows"),
+    (3, 5, "padded_rows")]
 
 
 def _warp_inputs(B, S, case, dev, H=48, W=80):
-    """Seeded warp inputs on `dev`: (bd, bw, tables, r2s, pdx, pdy) with bd
-    and bw the (B, H, W) permuted views of (H, W, B) buffers, as the
-    epilogue passes them, the intrinsics and the two cotangents."""
+    """Seeded warp inputs on `dev`: ((bd, bw, tables, r2s, pdx, pdy,
+    median, depths), the intrinsics, the two cotangents, the float source
+    images), with bd and bw the (B, H, W) permuted views of (H, W, B)
+    buffers, as the epilogue passes them, and tables their images'
+    `pack_rgb10_rows` footprint rows."""
     r = np.random.default_rng(zlib.crc32(f"{B} {S} {case}".encode()))
     row0, img_h = (272, 544) if case == "row0_272" else (0, H)
     fx = fy = 60.0
     cx, cy = W / 2.0, img_h / 2.0
     Hs, Ws = {"smaller": (H // 2 + 3, W // 2 + 5),
               "larger": (2 * H + 1, 2 * W + 3)}.get(case, (img_h, W))
-    used = r.uniform(size=(H, W, B)) < 0.7
-    bw = np.where(used, r.uniform(0.01, 0.5, (H, W, B)), 0.0)
+    Wp = W + 7 if case == "padded_rows" else W
+    used = r.uniform(size=(H, Wp, B)) < 0.7
+    bw = np.where(used, r.uniform(0.01, 0.5, (H, Wp, B)), 0.0)
     if case == "zero_weights":
         bw[:] = 0.0
-    bd = np.where(used, 3.0 + r.normal(size=(H, W, B)) * 0.03, 0.0)
+    bd = np.where(used, 3.0 + r.normal(size=(H, Wp, B)) * 0.03, 0.0)
     images = r.uniform(-0.1, 1.1, (S, Hs, Ws, 3))
+    depths = 3.0 + r.normal(size=(S, Hs, Ws)) * 0.03
+    depths[:, ::7, ::5] = 0.0                 # holes in the depth maps
     if case == "nan_texel":
-        images[0, H // 2, W // 2, 1] = np.nan
+        images[:, H // 4:H // 2, W // 4:W // 2, 1] = np.nan
+    if case == "nan_depth":
+        bd[H // 2, W // 2, 0] = np.nan
+        depths[0, H // 3, W // 3] = np.nan
     r2s = np.tile(np.eye(4), (S, 1, 1))
     for s_ in range(S):
         a = r.normal(size=3) * 0.02            # a small rotation
@@ -384,16 +398,22 @@ def _warp_inputs(B, S, case, dev, H=48, W=80):
         r2s[:, 0, 3] = 100.0
     gx, gy = np.meshgrid(np.arange(W), np.arange(H) + row0)
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(dev)
-    buf_d, buf_w = f32(bd), f32(bw)
+    buf_d, buf_w = f32(bd)[:, :W], f32(bw)[:, :W]
+    median = ((buf_w * buf_d).sum(-1)
+              / ((buf_w * (buf_w != 0)).sum(-1) + epilogue.EPS))
+    img = f32(images)
     args = (buf_d.permute(2, 0, 1), buf_w.permute(2, 0, 1),
-            epilogue.quantize_rgb10(f32(images)), f32(r2s),
-            f32((gx - cx) / fx), f32((gy - cy) / fy))
+            epilogue.pack_rgb10_rows(img), f32(r2s), f32((gx - cx) / fx),
+            f32((gy - cy) / fy), median.contiguous(), f32(depths))
     cts = (f32(r.normal(size=(S, H, W, 3))), f32(r.normal(size=(S, H, W))))
-    return args, (fx, fy, cx, cy), cts
+    return args, (fx, fy, cx, cy), cts, img
 
 
 def _same_bits(a, b):
-    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    """Bit for bit, NaN in the same places (their payloads aside)."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a[~nan].view(torch.int32), b[~nan].view(torch.int32))
 
 
 def _assert_warp_close(got, want, rel, abs_, per_column):
@@ -413,72 +433,101 @@ def _assert_warp_close(got, want, rel, abs_, per_column):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,case", WARP_CASES)
 def test_warp_kernels_match_plain(B, S, case):
-    """warp_fwd_cuda against warp_views_plain (1e-5 abs + 1e-5 rel: the
-    B-sum's order differs) and warp_bwd_cuda against warp_views_bwd_plain
-    (each of dbd, dbw within 1e-4 x its largest plain value + 1e-7), NaN
-    in the same places; two backward runs bit-identical."""
+    """rgb10_pack_cuda equals pack_rgb10_rows; warp_fwd_cuda's colour sums
+    against warp_views_plain's (1e-5 abs + 1e-5 rel: the B-sum's order
+    differs), its wdepth and depth_err bit for bit (the `valid` mask equal);
+    warp_bwd_cuda equals warp_views_bwd_plain bit for bit, NaN in the same
+    places; two backward runs bit-identical."""
     dev = _cuda()
-    args, intr, cts = _warp_inputs(B, S, case, dev)
+    args, intr, cts, images = _warp_inputs(B, S, case, dev)
+    packed = epilogue.rgb10_pack_cuda(images)
     k_fwd = epilogue.warp_fwd_cuda(*args, *intr)
     p_fwd = epilogue.warp_views_plain(*args, *intr)
-    k1 = epilogue.warp_bwd_cuda(*args, intr, *cts)
-    k2 = epilogue.warp_bwd_cuda(*args, intr, *cts)
-    p_bwd = epilogue.warp_views_bwd_plain(*args, intr, *cts)
+    k1 = epilogue.warp_bwd_cuda(*args[:6], intr, *cts)
+    k2 = epilogue.warp_bwd_cuda(*args[:6], intr, *cts)
+    p_bwd = epilogue.warp_views_bwd_plain(*args[:6], intr, *cts)
     torch.cuda.synchronize()
-    for k, p in zip(k_fwd, p_fwd):
+    assert torch.equal(packed, args[2])
+    for k, p in zip(k_fwd[:2], p_fwd[:2]):
         _assert_warp_close(k, p, 1e-5, 1e-5, per_column=False)
+    for k, p in zip(k_fwd[2:], p_fwd[2:]):
+        assert _same_bits(k, p)
+
+    def valid(out):
+        return (out[2] > 0.0) & (out[3] < 0.01)
+    assert torch.equal(valid(k_fwd), valid(p_fwd))
     for a, b, p in zip(k1, k2, p_bwd):
-        _assert_warp_close(a, p, 1e-4, 1e-7, per_column=True)
-        assert _same_bits(a, b)
+        assert a.shape == p.shape and _same_bits(a, p) and _same_bits(a, b)
     nan = [bool(torch.isnan(t).any()) for t in (*k_fwd, *k1)]
-    assert any(nan) == (case == "nan_texel")
+    assert any(nan) == (case == "nan_depth")
     if case == "zero_weights":
         assert not bool(k_fwd[0].any()) and not bool(k_fwd[1].any())
     if case == "out_of_bounds":
         assert not bool(k_fwd[1].any()) and not bool(k1[1].any())
+        assert not bool(k_fwd[2].any())
 
 
 @pytest.mark.gpu
 def test_warp_function_launches_each_kernel_once():
-    """One `warp_views` forward and backward on the card launches each
-    warp kernel exactly once and gives the plain versions' results."""
+    """One pack and one `warp_views` forward and backward on the card
+    launch each warp kernel exactly once, and each wrapper makes exactly
+    one device launch (no layout copy), with the plain versions'
+    results."""
     dev = _cuda()
-    args, intr, cts = _warp_inputs(4, 5, "larger", dev)
+    from ibgs_tpu_torch.utils import profiling
+    args, intr, cts, images = _warp_inputs(4, 5, "larger", dev)
     d = args[0].detach().requires_grad_(True)
     w = args[1].detach().requires_grad_(True)
     before = dict(epilogue.LAUNCHES)
-    wsc, ws = epilogue.warp_views(d, w, *args[2:], *intr)
+    tables = epilogue.rgb10_tables(images)
+    wsc, ws, _, _ = epilogue.warp_views(d, w, tables, *args[3:], *intr)
     gd, gw = torch.autograd.grad((wsc * cts[0]).sum() + (ws * cts[1]).sum(),
                                  [d, w])
     torch.cuda.synchronize()
     assert {k: epilogue.LAUNCHES[k] - before[k] for k in before} == \
-        {"warp_fwd": 1, "warp_bwd": 1}
+        {"rgb10_pack": 1, "warp_fwd": 1, "warp_bwd": 1}
     for k, p in zip((wsc, ws), epilogue.warp_views_plain(*args, *intr)):
         _assert_warp_close(k, p, 1e-5, 1e-5, per_column=False)
     for k, p in zip((gd, gw),
-                    epilogue.warp_views_bwd_plain(*args, intr, *cts)):
-        _assert_warp_close(k, p, 1e-4, 1e-7, per_column=True)
+                    epilogue.warp_views_bwd_plain(*args[:6], intr, *cts)):
+        assert _same_bits(k, p)
+    for fn in (lambda: epilogue.rgb10_pack_cuda(images),
+               lambda: epilogue.warp_fwd_cuda(*args, *intr),
+               lambda: epilogue.warp_bwd_cuda(*args[:6], intr, *cts)):
+        prof = profiling.device_time(fn, dev)
+        assert prof.get("device_launches") == 1, prof
 
 
 @pytest.mark.gpu
 def test_warp_kernels_refuse_bad_inputs():
-    """The wrappers raise ValueError on what the kernels do not take and
+    """The wrappers raise ValueError on what the kernels do not take
+    (among it buffers that are not (B, H, W) views of (H, W, B) ones) and
     count no launch."""
     dev = _cuda()
-    args, intr, cts = _warp_inputs(4, 5, "larger", dev)
+    args, intr, cts, images = _warp_inputs(4, 5, "larger", dev)
     before = dict(epilogue.LAUNCHES)
     bad = [(args[0].double(),) + args[1:],
+           (args[0].contiguous(), args[1].contiguous()) + args[2:],
+           (args[0], args[1].contiguous()) + args[2:],
            args[:2] + (args[2].cpu(),) + args[3:],
+           args[:2] + (args[2].float(),) + args[3:],
+           args[:2] + (epilogue.pack_rgb10(images),) + args[3:],
            args[:3] + (args[3][:2],) + args[4:],
-           args[:4] + (args[4][:, :-1],) + args[5:],
-           args[:2] + (args[2][..., :2],) + args[3:]]
+           args[:4] + (args[4][:, :-1],) + args[5:]]
     for a in bad:
         with pytest.raises(ValueError):
             epilogue.warp_fwd_cuda(*a, *intr)
         with pytest.raises(ValueError):
-            epilogue.warp_bwd_cuda(*a, intr, *cts)
+            epilogue.warp_bwd_cuda(*a[:6], intr, *cts)
+    for a in (args[:6] + (args[6].t().contiguous().t(),) + args[7:],
+              args[:7] + (args[7][:, :, :-1],)):
+        with pytest.raises(ValueError):
+            epilogue.warp_fwd_cuda(*a, *intr)
     with pytest.raises(ValueError):
-        epilogue.warp_bwd_cuda(*args, intr, cts[0][:, 1:], cts[1])
+        epilogue.warp_bwd_cuda(*args[:6], intr, cts[0][:, 1:], cts[1])
+    for im in (images.double(), images[..., :2], images.transpose(1, 2)):
+        with pytest.raises(ValueError):
+            epilogue.rgb10_pack_cuda(im)
     assert epilogue.LAUNCHES == before
 
 
@@ -883,15 +932,17 @@ class _PlainBlend:
 
     def __enter__(self):
         self.kernels = (blend.blend_fwd_cuda, blend.blend_bwd_cuda,
-                        epilogue.warp_fwd_cuda, epilogue.warp_bwd_cuda)
+                        epilogue.rgb10_pack_cuda, epilogue.warp_fwd_cuda,
+                        epilogue.warp_bwd_cuda)
         blend.blend_fwd_cuda = blend.blend_plain
         blend.blend_bwd_cuda = blend.blend_bwd_plain
+        epilogue.rgb10_pack_cuda = epilogue.pack_rgb10_rows
         epilogue.warp_fwd_cuda = epilogue.warp_views_plain
         epilogue.warp_bwd_cuda = epilogue.warp_views_bwd_plain
 
     def __exit__(self, *exc):
-        (blend.blend_fwd_cuda, blend.blend_bwd_cuda, epilogue.warp_fwd_cuda,
-         epilogue.warp_bwd_cuda) = self.kernels
+        (blend.blend_fwd_cuda, blend.blend_bwd_cuda, epilogue.rgb10_pack_cuda,
+         epilogue.warp_fwd_cuda, epilogue.warp_bwd_cuda) = self.kernels
 
 
 @pytest.mark.gpu

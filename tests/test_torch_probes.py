@@ -18,21 +18,27 @@ the JAX package where it computes the same thing.
   `gsp_render` rows on the 8-virtual-device mesh: the integers exactly,
   both `exact`;
 * gsp_tax: the unsharded step and the step on a 1 x 1 mesh give the same
-  first loss (within 1e-6 relative).
+  first loss (within 1e-6 relative);
+* warp_probe: each variant's source is the port's csrc/warp.cu with only
+  its table format, CTA width and register cap changed (the kernels
+  themselves build and run on the card only).
 """
 import dataclasses
 import json
+import re
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from ibgs_tpu.ops import blend_oracle as jbo
 from ibgs_tpu.ops.blend_common import BlendConfig as JBlendConfig
 from ibgs_tpu.ops.blend_common import Instances
 from ibgs_tpu_torch.ops import blend
+from ibgs_tpu_torch.ops import _cuda
 from ibgs_tpu_torch.scripts import (gsp_scaling, gsp_tax, kernel_probe,
-                                    parse_trace, perf_probe)
+                                    parse_trace, perf_probe, warp_probe)
 from ibgs_tpu_torch.utils import profiling
 from tests.test_torch_slice import one_torch_thread  # noqa: F401
 
@@ -262,3 +268,37 @@ def test_gsp_tax_profile_writes_a_trace(tmp_path):
     assert recs[-1] == {"profile": str(tmp_path), "chain_iters": 1}
     s = parse_trace.summarize(parse_trace.load_events(str(tmp_path)))
     assert s["device_events"] == 0
+
+
+@pytest.mark.parametrize("table,tile_w,min_ctas", warp_probe.VARIANTS)
+def test_warp_probe_variant_sources(table, tile_w, min_ctas):
+    """A warp_probe variant's source differs from csrc/warp.cu in its CTA
+    width, register cap and, for one word per texel, the three places of
+    the table format: TABLE_WORDS, `fetch`'s loads and the pack's store;
+    the port's own variant is the source unchanged."""
+    port = _cuda.SOURCES["warp"].read_text()
+    src = warp_probe.variant_source(table, tile_w, min_ctas)
+    if (table, tile_w, min_ctas) == warp_probe.PORT:
+        assert src == port
+    assert f"constexpr int TILE_W = {tile_w};" in src
+    assert f"constexpr int MIN_CTAS = {min_ctas};" in src
+    words = 4 if table == "rows" else 1
+    assert f"constexpr int TABLE_WORDS = {words};" in src
+    fetch = src[src.index("Foot fetch("):src.index("float channel(")]
+    assert ("const int4 r = __ldg" in fetch) == (table == "rows")
+    assert fetch.count("__ldg(") == (1 if table == "rows" else 4)
+    pack = src[src.index("rgb10_pack_kernel(const float*"):]
+    assert ("reinterpret_cast<int4*>(out)[i]" in pack) == (table == "rows")
+    changed = {"TILE_W", "MIN_CTAS", "TABLE_WORDS"}
+    strip = lambda t: [ln for ln in t.splitlines()
+                       if not any(re.search(rf"constexpr int {c} = ", ln)
+                                  for c in changed)]
+    if table == "rows":
+        assert strip(src) == strip(port)
+    else:
+        # the other definitions are the port's, line for line
+        cut = lambda t: t[t.index("__device__ __forceinline__ float "
+                                  "channel("):
+                          t.index("__global__ void __launch_bounds__("
+                                  "THREADS)\n    rgb10_pack_kernel")]
+        assert cut(src) == cut(port)
