@@ -26,18 +26,30 @@ Phases, one JSON line each; any failure makes the exit code 1:
              depth_err) bit for bit and the `valid` mask equal, the
              backward bit for bit, non-finite values in the same places,
              two backward runs bit-identical
+  preprocess the two projection kernels (csrc/preprocess.cu) against
+             their plain versions on the bundle at 960x544 and 1920x1088
+             (the training objective's own inputs and cotangents, then
+             seeded random cotangents) and on the bench's random 1M scene
+             (1,310,720 slots) at 960x544: the forward's integer fields
+             equal (0 differing integers), its float fields within 1e-5
+             abs + 1e-5 rel; the backward, per gradient column, within 2x
+             the float32 plain version's max error against a float64 run
+             of it + 1e-7 of the column's largest value, non-finite values
+             in the plain version's places, two runs bit-identical
   serve      EvalRenderer.render_one at 960x544 and 1920x1088: finite
-             outputs, exactly 5 blend forwards, 1 rgb10 pack, 1 warp
-             forward and no backward per view
+             outputs, exactly 5 blend forwards and 5 projections, 1 rgb10
+             pack, 1 warp forward and no backward per view
   train      10 IBGS training steps at 960x544 (render_geo + aggregation,
              iteration 13000), 1 launch of each kernel per step, finite,
              loss falling; then 1 colour-only step (iteration 5000): 1
-             launch of each blend kernel and no pack or warp
+             launch of each blend and projection kernel and no pack or
+             warp
   timing     kernel / plain / serving / train-step times (CUDA events and
-             host clock), each kernel case's share of its bound (the
-             warp forward's also with the pack), the warp kernels'
-             registers, spills and CTAs per SM, the tile range lengths
-             (p50, p99, max)
+             host clock; the projection kernels by their profiled device
+             time), each kernel case's share of its bound (the
+             warp forward's also with the pack), the warp and projection
+             kernels' registers, spills and CTAs per SM, the tile range
+             lengths (p50, p99, max)
              per size, peak memory, device busy share (torch.profiler)
   loop       the training driver (train/loop.train) on the bundle's 5
              views at 960x544 from its 91,307 splat centres as seed
@@ -112,10 +124,10 @@ Phases, one JSON line each; any failure makes the exit code 1:
              generic exchange (equal first losses); gsp_scaling's row at
              world size 1 (exact, no overflow).  Every value finite, every
              default config present, and every bench chain of k steps
-             launches exactly k blend forwards, k packs and k warp
-             forwards and, in train mode, k of each backward
+             launches exactly k blend forwards, k projections, k packs
+             and k warp forwards and, in train mode, k of each backward
   kernels    each kernel (blend_fwd, blend_bwd, rgb10_pack, warp_fwd,
-             warp_bwd) with
+             warp_bwd, preprocess_fwd, preprocess_bwd) with
              its launches on the serving, train, loop,
              eval, parallel, drivers and bench paths (the parallel count
              takes only the band renders, the two GSP steps and the CLI
@@ -178,6 +190,18 @@ WARP_OPS_PER_PAIR = {"warp_fwd": 67, "warp_bwd": 145}
 WARP_OCC_OPS, WARP_OCC_PIXEL_OPS = 46, 2
 # rgb10_pack per texel: clamp (2), scale, round, per channel
 PACK_OPS_PER_TEXEL = 12
+# float ops per Gaussian of the projection kernels, (fixed, per SH
+# coefficient), counted from csrc/preprocess.cu to about 10%: the forward's
+# view and clip transforms 36, pixel mean 12, EWA Jacobian 34, rotation and
+# covariance 91, the three quadratic forms 81, conic 11, radius and
+# rectangle 55, view direction 13, basis 21, plane 28, and per coefficient
+# the mask and the colour sums 7; the backward recomputes the geometry
+# (about 290) and adds the quadratic forms' adjoint 270, the covariance's
+# 108, the quaternion's 50, the Jacobian's, pixel mean's, conic's and view
+# transform's 88, the colour's 90 and the plane's 53, per coefficient 16
+PRE_OPS = {"preprocess_fwd": (390, 7), "preprocess_bwd": (970, 16)}
+PRE_SCENE_N = 1_000_000            # the random scene of the bench (1M)
+PRE_PROFILED = 5                   # profiled calls per projection kernel
 MODE_NAMES = {0: "color", 1: "render_geo", 2: "depth_only"}
 FIELDS = ("color", "normal", "final_t", "n_contrib", "buf_depth",
           "buf_weight", "buf_contrib")
@@ -288,15 +312,16 @@ def emit(obj):
 
 
 def launch_counts():
-    """Every kernel wrapper's launch count: the blend's and the warp's
-    (rgb10_pack, warp_fwd, warp_bwd)."""
-    from ibgs_tpu_torch.ops import blend, epilogue
-    return {**blend.LAUNCHES, **epilogue.LAUNCHES}
+    """Every kernel wrapper's launch count: the blend's, the warp's
+    (rgb10_pack, warp_fwd, warp_bwd) and the projection's
+    (preprocess_fwd, preprocess_bwd)."""
+    from ibgs_tpu_torch.ops import blend, epilogue, preprocess
+    return {**blend.LAUNCHES, **epilogue.LAUNCHES, **preprocess.LAUNCHES}
 
 
 def reset_launch_counts():
-    from ibgs_tpu_torch.ops import blend, epilogue
-    for counts in (blend.LAUNCHES, epilogue.LAUNCHES):
+    from ibgs_tpu_torch.ops import blend, epilogue, preprocess
+    for counts in (blend.LAUNCHES, epilogue.LAUNCHES, preprocess.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -308,10 +333,15 @@ def launches_since(before):
 
 def kernel_launches(blend_fwd, blend_bwd, warp_fwd, warp_bwd):
     """The launch counts of a path; every render_geo render packs its
-    source colours once before its warp forward."""
+    source colours once before its warp forward, and every render
+    projects its splats once (preprocess_fwd) before its blend and, in a
+    backward, runs preprocess_bwd once after blend_bwd.  (gsp_scaling's
+    row also projects once without a blend to count instances; it runs in
+    the bench phase outside the counted bench runs.)"""
     return {"blend_fwd": blend_fwd, "blend_bwd": blend_bwd,
             "rgb10_pack": warp_fwd, "warp_fwd": warp_fwd,
-            "warp_bwd": warp_bwd}
+            "warp_bwd": warp_bwd, "preprocess_fwd": blend_fwd,
+            "preprocess_bwd": blend_bwd}
 
 
 def geo_steps(opt, n_train, first, last):
@@ -500,6 +530,112 @@ def gate_warp_pair(args, intr, cts, tag, failures, images=None):
         failures.append(f"{tag} warp_fwd: the valid mask differs at "
                         f"{rec['valid_mismatch_pixels']} pixels")
     return rec, errs
+
+
+def preprocess_args(model, cam, learnt, tile_h, tile_w):
+    """preprocess_fwd_cuda's arguments for `model` seen from `cam`, as
+    rasterize passes them."""
+    nw, off = model.oriented_normal(cam.cam_pos, learnt=learnt)
+    return (model.params.xyz.detach(), model.scale.detach(),
+            model.quat_unit.detach(), model.opacity.detach(),
+            model.sh_coeffs.detach(), model.active_sh_degree, nw.detach(),
+            off.detach(), cam, tile_h, tile_w, model.alive)
+
+
+def gate_preprocess(args, cts, tag, failures):
+    """The projection kernels against their plain versions on one set of
+    inputs (`args` as preprocess_fwd_cuda takes them, `cts` the five
+    cotangents): the forward's integer fields equal (the count of
+    differing integers is 0), its float fields within TOL_ABS +
+    TOL_REL·|plain|, NaN in the same places; the backward, per gradient
+    column, within 2x the float32 plain version's max |error| against a
+    float64 run of the plain version + 1e-7 of the column's largest
+    |value|, non-finite values in the plain version's places, two runs
+    bit-identical.  Returns (record, {kernel: max abs error})."""
+    import torch
+    from ibgs_tpu_torch.ops import preprocess as pre
+    k = pre.preprocess_fwd_cuda(*args)
+    p = pre.preprocess_fwd_plain(*args)
+    bargs = tuple(args[i] for i in (0, 1, 2, 4, 5, 6, 7, 8))
+    k1 = pre.preprocess_bwd_cuda(*bargs, cts)
+    k2 = pre.preprocess_bwd_cuda(*bargs, cts)
+    p32 = pre.preprocess_bwd_plain(*bargs, cts)
+
+    def f64(x):
+        return x.double() if torch.is_tensor(x) else x
+    p64 = pre.preprocess_bwd_plain(*(f64(a) for a in bargs),
+                                   tuple(f64(c) for c in cts))
+    torch.cuda.synchronize()
+    rec = {"splats": int(args[0].shape[0]), "sh_coeffs": args[4].shape[1],
+           "active_sh_degree": args[5],
+           "culled": int((k[9] == 0).sum()), "fwd": {}, "bwd": {}}
+    errs = {"preprocess_fwd": 0.0, "preprocess_bwd": 0.0}
+    bad_ints = 0
+    for name, a, b in zip(pre.OUTPUTS, k, p):
+        if a.dtype == torch.int32:
+            n_bad = int((a != b).sum())
+            bad_ints += n_bad
+            rec["fwd"][name + "_differing"] = n_bad
+            continue
+        nan = torch.isnan(b)
+        err = (a - b).abs()[~nan]
+        e = float(err.max()) if err.numel() else 0.0
+        ok = torch.equal(torch.isnan(a), nan) and bool(
+            (err <= TOL_ABS + TOL_REL * b.abs()[~nan]).all())
+        rec["fwd"][name + "_max_abs_err"] = e
+        errs["preprocess_fwd"] = max(errs["preprocess_fwd"], e)
+        if not ok:
+            failures.append(f"{tag} preprocess_fwd {name}: max abs err {e}")
+    rec["fwd"]["differing_integers"] = bad_ints
+    if bad_ints:
+        failures.append(f"{tag} preprocess_fwd: {bad_ints} differing "
+                        f"integers")
+    names = ("xyz", "scale", "quat", "sh", "normal", "offset")
+    for name, a, b, c, a2 in zip(names, k1, p32, p64, k2):
+        P = a.shape[0]
+        a_, b_, c_ = (t.reshape(P, -1).double() for t in (a, b, c))
+        same_nf = torch.equal(torch.isfinite(a_), torch.isfinite(b_))
+        fin = torch.isfinite(b_) & torch.isfinite(c_)
+        zero = torch.zeros((), dtype=torch.float64, device=a.device)
+        ek = torch.where(fin, (a_ - c_).abs(), zero).amax(0)
+        ep = torch.where(fin, (b_ - c_).abs(), zero).amax(0)
+        scale = torch.where(fin, c_.abs(), zero).amax(0)
+        ok = bool((ek <= 2 * ep + 1e-7 * scale).all())
+        rep_ok = same_bits(a, a2)
+        r = {"max_abs_err_vs_f64": float(ek.max()),
+             "plain_f32_max_abs_err_vs_f64": float(ep.max()),
+             "max_abs_f64": float(scale.max()),
+             "worst_err_over_plain_err": float(
+                 (ek / torch.clamp(2 * ep + 1e-7 * scale, min=1e-300)).max()),
+             "nonfinite": int((~torch.isfinite(a_)).sum()),
+             "bit_identical_repeat": rep_ok}
+        rec["bwd"][name] = r
+        errs["preprocess_bwd"] = max(errs["preprocess_bwd"],
+                                     float((a_ - b_).abs()[fin].max())
+                                     if bool(fin.any()) else 0.0)
+        if not (ok and same_nf and rep_ok):
+            failures.append(f"{tag} preprocess_bwd d{name}: {r}, within "
+                            f"2x the plain error {ok}, non-finite in the "
+                            f"same places {same_nf}")
+    return rec, errs
+
+
+def preprocess_bytes(args, cts=None):
+    """Bytes the forward (cts None) or the backward must move: each input
+    read once, each output written once (the camera's 35 words included;
+    the cotangents' values only, not the padding of the table they are
+    slices of)."""
+    xyz, scale, quat, opacity, sh, _, nw, off, cam, _, _, alive = args
+    cam_bytes = 4 * (16 + 16 + 3)
+    common = sum(t.numel() * t.element_size()
+                 for t in (xyz, scale, quat, sh, nw, off))
+    P = xyz.shape[0]
+    if cts is None:
+        reads = common + 4 * P + (alive.numel() if alive is not None else 0)
+        writes = 4 * P * (2 + 1 + 3 + 3 + 3 + 1) + 4 * P * (1 + 2 + 2 + 1)
+        return reads + cam_bytes + writes
+    return 2 * common + cam_bytes + sum(4 * c.numel() for c in cts
+                                       if c is not None)
 
 
 def median_range(xs):
@@ -1364,37 +1500,46 @@ def parallel_phase(d, dev, scenes, inputs, opt, rcfg, failures):
 
 @contextlib.contextmanager
 def plain_blend():
-    """Route the blend and warp wrappers to their plain versions on the
-    card, so a driver runs its plain path on the same device and inputs."""
+    """Route every kernel wrapper (blend, warp, projection) to its plain
+    version on the card, so a driver runs its plain path on the same
+    device and inputs."""
     from ibgs_tpu_torch.ops import blend, epilogue
+    from ibgs_tpu_torch.ops import preprocess as pre
     kernels = (blend.blend_fwd_cuda, blend.blend_bwd_cuda,
                epilogue.rgb10_pack_cuda, epilogue.warp_fwd_cuda,
-               epilogue.warp_bwd_cuda)
+               epilogue.warp_bwd_cuda, pre.preprocess_fwd_cuda,
+               pre.preprocess_bwd_cuda)
     blend.blend_fwd_cuda, blend.blend_bwd_cuda = (blend.blend_plain,
                                                   blend.blend_bwd_plain)
     epilogue.rgb10_pack_cuda = epilogue.pack_rgb10_rows
     epilogue.warp_fwd_cuda = epilogue.warp_views_plain
     epilogue.warp_bwd_cuda = epilogue.warp_views_bwd_plain
+    pre.preprocess_fwd_cuda = pre.preprocess_fwd_plain
+    pre.preprocess_bwd_cuda = pre.preprocess_bwd_plain
     try:
         yield
     finally:
         (blend.blend_fwd_cuda, blend.blend_bwd_cuda,
          epilogue.rgb10_pack_cuda, epilogue.warp_fwd_cuda,
-         epilogue.warp_bwd_cuda) = kernels
+         epilogue.warp_bwd_cuda, pre.preprocess_fwd_cuda,
+         pre.preprocess_bwd_cuda) = kernels
 
 
 @contextlib.contextmanager
 def recording():
     """Record the arguments of every blend backward, rgb10 pack, warp
-    forward and warp backward launch while the block runs: yields {name:
-    [args, ...]}."""
+    forward and backward and projection forward and backward launch while
+    the block runs: yields {name: [args, ...]}."""
     from ibgs_tpu_torch.ops import blend, epilogue
+    from ibgs_tpu_torch.ops import preprocess as pre
     seen = {"blend_bwd": [], "rgb10_pack": [], "warp_fwd": [],
-            "warp_bwd": []}
+            "warp_bwd": [], "preprocess_fwd": [], "preprocess_bwd": []}
     slots = ((blend, "blend_bwd_cuda", "blend_bwd"),
              (epilogue, "rgb10_pack_cuda", "rgb10_pack"),
              (epilogue, "warp_fwd_cuda", "warp_fwd"),
-             (epilogue, "warp_bwd_cuda", "warp_bwd"))
+             (epilogue, "warp_bwd_cuda", "warp_bwd"),
+             (pre, "preprocess_fwd_cuda", "preprocess_fwd"),
+             (pre, "preprocess_bwd_cuda", "preprocess_bwd"))
     kernels = [getattr(mod, attr) for mod, attr, _ in slots]
 
     def recorder(fn, name):
@@ -1765,7 +1910,8 @@ def bench_phase(dev, failures):
         n_bwd = BENCH_ITERS if want_bwd else 0
         want = kernel_launches(BENCH_ITERS, n_bwd, BENCH_ITERS, n_bwd)
         for row in out["detail"]["configs"]:
-            got = {**row["blend_launches"], **row["warp_launches"]}
+            got = {**row["blend_launches"], **row["warp_launches"],
+                   **row["preprocess_launches"]}
             if got != want:
                 failures.append(f"bench {tag} {row['config']} "
                                 f"{row['resolution']}: a chain launched "
@@ -2041,15 +2187,22 @@ def main():
         torch.cuda.synchronize()
         feats, start, stop, *geom, saved, cts, row0 = seen["blend_bwd"][0]
         saved = type(saved)(*(getattr(saved, f).detach() for f in FIELDS))
+        # the projection's forward arguments and the backward's cotangents
+        pre_fwd = tuple(a.detach() if torch.is_tensor(a) else a
+                        for a in seen["preprocess_fwd"][0])
+        pre_cts = tuple(None if c is None else c.detach()
+                        for c in seen["preprocess_bwd"][0][-1])
         return ((feats.detach(), start, stop, *geom, saved,
                  tuple(c.detach() for c in cts), row0),
                 (*warp_args(seen["warp_fwd"][0], seen["warp_bwd"][0]),
-                 seen["rgb10_pack"][0][0]) if mode == 1 else None)
+                 seen["rgb10_pack"][0][0]) if mode == 1 else None,
+                (pre_fwd, pre_cts))
 
     captured = {(wh, mode): captured_bwd_args(wh, mode)
                 for wh in SIZES for mode in (1, 0)}
     bwd_args = {k: v[0] for k, v in captured.items()}
     warp_in = {wh: captured[(wh, 1)][1] for wh in SIZES}
+    pre_in = {wh: captured[(wh, 1)][2] for wh in SIZES}
     del captured
 
     # ---- blend_bwd: kernel vs plain at 960x544 -----------------------------
@@ -2097,6 +2250,40 @@ def main():
                 warp_max_abs_err[k] = max(warp_max_abs_err[k], v)
         rec["sizes"][f"{wh[0]}x{wh[1]}"] = r
     rec["max_abs_err"] = warp_max_abs_err
+    emit(rec)
+
+    # ---- preprocess: the projection kernels vs plain -----------------------
+    # the bundle at both sizes (the training objective's own inputs and
+    # cotangents, then seeded random cotangents) and the bench's random 1M
+    # scene at 960x544 (random cotangents), as strided slices of a
+    # (P, 15) table, the way rasterize's table hands them back
+    from ibgs_tpu_torch.bench import random_model, round_up, simple_camera
+    rec = {"phase": "preprocess", "cases": {}}
+    pre_max_abs_err = {"preprocess_fwd": 0.0, "preprocess_bwd": 0.0}
+    gen = torch.Generator().manual_seed(2468)
+
+    def table_cts(P):
+        tab = torch.randn(P, 15, generator=gen).to(dev)
+        return (tab[:, 0:2], tab[:, 2:5], tab[:, 6:9], tab[:, 9:12],
+                tab[:, 12])
+
+    scene_1m = (random_model(PRE_SCENE_N, round_up(1.31 * PRE_SCENE_N,
+                                                    1024), dev),
+                simple_camera(*SIZES[0], device=dev))
+    pre_scenes = [(f"bundle_{w}x{h}_{kind}", pre_in[(w, h)][0],
+                  pre_in[(w, h)][1] if kind == "real" else None)
+                 for w, h in SIZES for kind in ("real", "random")]
+    pre_scenes.append((f"random_1m_{SIZES[0][0]}x{SIZES[0][1]}",
+                      preprocess_args(scene_1m[0], scene_1m[1],
+                                      opt.learnt_normal, rcfg.tile_h,
+                                      rcfg.tile_w), None))
+    for tag, args, cts in pre_scenes:
+        cts = cts if cts is not None else table_cts(args[0].shape[0])
+        rec["cases"][tag], errs = gate_preprocess(
+            args, cts, f"preprocess {tag}", failures)
+        for k, v in errs.items():
+            pre_max_abs_err[k] = max(pre_max_abs_err[k], v)
+    rec["max_abs_err"] = pre_max_abs_err
     emit(rec)
 
     # ---- serve: the serving path, counted ----------------------------------
@@ -2305,6 +2492,50 @@ def main():
                                         / fwd["ms_with_pack"])
         warp_cases += by_name.values()
 
+    from ibgs_tpu_torch.ops import preprocess as pre
+    from ibgs_tpu_torch.utils import profiling
+    pre_cases = []
+    for tag, args in ((f"bundle_{SIZES[0][0]}x{SIZES[0][1]}",
+                       pre_in[SIZES[0]][0]),
+                      (f"random_1m_{SIZES[0][0]}x{SIZES[0][1]}",
+                       preprocess_args(scene_1m[0], scene_1m[1],
+                                       opt.learnt_normal, rcfg.tile_h,
+                                       rcfg.tile_w))):
+        P, K = args[0].shape[0], args[4].shape[1]
+        cts = table_cts(P)
+        bargs = tuple(args[i] for i in (0, 1, 2, 4, 5, 6, 7, 8))
+        calls = {
+            "preprocess_fwd": (lambda: pre.preprocess_fwd_cuda(*args),
+                               lambda: pre.preprocess_fwd_plain(*args),
+                               preprocess_bytes(args)),
+            "preprocess_bwd": (lambda: pre.preprocess_bwd_cuda(*bargs, cts),
+                               lambda: pre.preprocess_bwd_plain(*bargs, cts),
+                               preprocess_bytes(args, cts))}
+        for name, (kernel, plain, nbytes) in calls.items():
+            base, per_coeff = PRE_OPS[name]
+            ops = P * (base + per_coeff * K)
+            # the kernel's own time: the median device time of profiled
+            # calls (at the bundle's size one launch takes less device time
+            # than the wrapper's host work, so CUDA events around calls
+            # back to back time the host: kept as events_ms)
+            events_ms = cuda_ms(kernel, 20)
+            runs = [profiling.device_time(kernel, DEVICE)
+                    for _ in range(PRE_PROFILED)]
+            if any(r.get("device_launches") != 1 for r in runs):
+                failures.append(f"timing {name} {tag}: profiled calls {runs}")
+                runs = [{"device_busy_ms": math.nan}]
+            k_ms = sorted(r["device_busy_ms"] for r in runs)[len(runs) // 2]
+            p_ms = cuda_ms(plain, 1, warmup=1)
+            t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / FP32_FLOP_S
+            pre_cases.append({
+                "kernel": name, "scene": tag, "splats": P, "sh_coeffs": K,
+                "ms": k_ms, "events_ms": events_ms, "plain_ms": p_ms,
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_share": max(t_bytes, t_ops) * 1e3 / k_ms,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "ops": ops,
+                **_cuda.preprocess_info(name, K)})
+
     serve_ms = {}
     for wh in SIZES:
         sc = scenes[wh]
@@ -2358,13 +2589,14 @@ def main():
             "profile": device_profile(train_one, times["median"],
                                       f"timing train {wh}", failures)}
     emit({"phase": "timing", "blend_fwd": fwd_cases, "blend_bwd": bwd_cases,
-          "warp": warp_cases,
+          "warp": warp_cases, "preprocess": pre_cases,
           "tile_ranges": {f"{wh[0]}x{wh[1]}": range_lengths(preps[wh])
                           for wh in SIZES},
           "serve": serve_ms, "train_step": train_ms})
 
     # ---- loop: the training driver from the seed cloud, counted ------------
-    del renderers, train_in, bwd_args, warp_in, preps, outs, state
+    del renderers, train_in, bwd_args, warp_in, pre_in, scene_1m, preps, outs
+    del state
     torch.cuda.empty_cache()
     rec, loop_launches, resume_launches = loop_phase(d, dev, failures)
     emit(rec)
@@ -2399,6 +2631,8 @@ def main():
     bwd_main = next(c for c in bwd_cases
                     if c["mode"] == "render_geo" and c["size"] == size0)
     warp_main = {c["kernel"]: c for c in warp_cases if c["size"] == size0}
+    pre_main = {c["kernel"]: c for c in pre_cases
+                if c["scene"] == f"bundle_{size0}"}
     launches_by_path = {k: {"serve": serve_launches[k],
                             "train": train_launches[k],
                             "loop": loop_launches[k],
@@ -2420,13 +2654,14 @@ def main():
             failures.append(f"{k} was not launched on the drivers path")
         if by_path["bench"] == 0:
             failures.append(f"{k} was not launched on the bench path")
-    for k in ("blend_fwd", "rgb10_pack", "warp_fwd"):
+    for k in ("blend_fwd", "rgb10_pack", "warp_fwd", "preprocess_fwd"):
         if serve_launches[k] == 0:
             failures.append(f"{k} was not launched on the serving path")
         if eval_launches[k] == 0:
             failures.append(f"{k} was not launched on the evaluation path")
-    if color_launches["blend_bwd"] != 1:
-        failures.append("the colour-only step did not launch blend_bwd")
+    for k in ("blend_bwd", "preprocess_bwd"):
+        if color_launches[k] != 1:
+            failures.append(f"the colour-only step did not launch {k}")
 
     if failures:
         for f in failures:
@@ -2458,7 +2693,15 @@ def main():
                warp_max_abs_err[name],
                [c for c in warp_cases if c["kernel"] == name])
           for name, at in (("rgb10_pack", 152), ("warp_fwd", 219),
-                           ("warp_bwd", 286)))]})
+                           ("warp_bwd", 286))),
+        # no single PyTorch call computes the projection (the EWA
+        # covariance, the SH colour, the camera-space plane and the tile
+        # rectangles of each splat) or its gradient
+        *(line(name, "ibgs_tpu_torch/ops/csrc/preprocess.cu",
+               "ibgs_tpu/ops/preprocess.py:142", pre_main[name],
+               pre_max_abs_err[name],
+               [c for c in pre_cases if c["kernel"] == name])
+          for name in ("preprocess_fwd", "preprocess_bwd"))]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

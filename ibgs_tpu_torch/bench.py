@@ -58,7 +58,7 @@ from ibgs_tpu_torch.core.camera import look_at_camera, make_camera
 from ibgs_tpu_torch.models.gaussians import (PARAM_FIELDS, GaussianModel,
                                              GaussianParams,
                                              init_from_points)
-from ibgs_tpu_torch.ops import blend, epilogue
+from ibgs_tpu_torch.ops import blend, epilogue, preprocess
 from ibgs_tpu_torch.ops.epilogue import SourceViews
 from ibgs_tpu_torch.ops.rasterize import RasterConfig
 from ibgs_tpu_torch.renderer import render_view
@@ -313,12 +313,14 @@ def run_config(args, dev, rng, model, bundle, n_splats, label, W, H):
         torch.cuda.reset_peak_memory_stats(dev)
     best = float("inf")
     for r in range(args.repeats):
-        before = {**blend.LAUNCHES, **epilogue.LAUNCHES}
+        before = {**blend.LAUNCHES, **epilogue.LAUNCHES,
+                  **preprocess.LAUNCHES}
         best = min(best, profiling.wall_ms(
             lambda: chain(model, cam, cfg, src, gt, k, args.mode),
             device=dev) / 1e3)
         if r == 0:
-            now = {**blend.LAUNCHES, **epilogue.LAUNCHES}
+            now = {**blend.LAUNCHES, **epilogue.LAUNCHES,
+                   **preprocess.LAUNCHES}
             chain_launches = {n: now[n] - before[n] for n in before}
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
         else None
@@ -338,6 +340,8 @@ def run_config(args, dev, rng, model, bundle, n_splats, label, W, H):
         "launches": prof.get("device_launches"),
         "blend_launches": {n: chain_launches[n] for n in blend.LAUNCHES},
         "warp_launches": {n: chain_launches[n] for n in epilogue.LAUNCHES},
+        "preprocess_launches": {n: chain_launches[n]
+                                for n in preprocess.LAUNCHES},
         "chain_iters": k,
         "max_memory_allocated": peak,
     }

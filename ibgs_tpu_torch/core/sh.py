@@ -66,7 +66,13 @@ def degree_mask(max_degree: int, active_degree: int,
 def eval_sh(coeffs: torch.Tensor, dirs: torch.Tensor, max_degree: int,
             active_degree: int) -> torch.Tensor:
     """(…, K, 3) coefficients, (…, 3) unit view dirs → (…, 3) raw SH sum
-    (no +0.5 offset / clamp; callers apply those)."""
+    (no +0.5 offset / clamp; callers apply those).  The sum over the K
+    coefficients runs left to right, one elementwise op per term (an order
+    a per-Gaussian kernel reproduces bit for bit); masked coefficients
+    enter it as 0·c."""
     basis = sh_basis(dirs, max_degree)
     basis = basis * degree_mask(max_degree, active_degree, dirs.device)
-    return torch.einsum("...k,...kc->...c", basis, coeffs)
+    out = basis[..., 0, None] * coeffs[..., 0, :]
+    for k in range(1, basis.shape[-1]):
+        out = out + basis[..., k, None] * coeffs[..., k, :]
+    return out

@@ -96,9 +96,17 @@ def focal_to_fov(focal: float, pixels: int) -> float:
 # Projection helpers (device-side)
 # --------------------------------------------------------------------------
 
+def _affine_row(M: torch.Tensor, r: int, p: torch.Tensor) -> torch.Tensor:
+    """Row r of M applied to (…, 3) points, summed left to right
+    (p0·M[r,0] + p1·M[r,1]) + p2·M[r,2] + M[r,3]: one elementwise op per
+    term, an order a per-point kernel reproduces bit for bit."""
+    return (p[..., 0] * M[r, 0] + p[..., 1] * M[r, 1] + p[..., 2] * M[r, 2]
+            + M[r, 3])
+
+
 def apply_transform(M: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """(4,4) @ (…,3) homogeneous point transform → (…,3) xyz (no divide)."""
-    return p @ M[:3, :3].T + M[:3, 3]
+    return torch.stack([_affine_row(M, r, p) for r in range(3)], dim=-1)
 
 
 def apply_rotation(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -108,9 +116,8 @@ def apply_rotation(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def project_hom(M: torch.Tensor, p: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
     """Full projective transform with homogeneous divide → (…,3) NDC."""
-    xyzw = p @ M[:, :3].T + M[:, 3]
-    w = 1.0 / (xyzw[..., 3] + eps)
-    return xyzw[..., :3] * w[..., None]
+    w = 1.0 / (_affine_row(M, 3, p) + eps)
+    return torch.stack([_affine_row(M, r, p) * w for r in range(3)], dim=-1)
 
 
 def ndc_to_pixel(v: torch.Tensor, size) -> torch.Tensor:

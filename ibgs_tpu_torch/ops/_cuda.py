@@ -23,7 +23,8 @@ CSRC = _PKG / "ops" / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "ibgs_tpu_torch"
 SOURCES = {"blend_fwd": CSRC / "blend_fwd.cu",
            "blend_bwd": CSRC / "blend_bwd.cu",
-           "warp": CSRC / "warp.cu"}
+           "warp": CSRC / "warp.cu",
+           "preprocess": CSRC / "preprocess.cu"}
 HEADERS = (CSRC / "blend_common.cuh",)
 # --fmad=false: no multiply-add contraction, so float ops round one by one
 # as the plain PyTorch versions' ops do (see the notes in the sources).
@@ -62,6 +63,20 @@ _SIGNATURES = {
     "ibgs_warp_bwd": ([_c_ptr, _c_ptr, _c_ll] + [_c_ptr] * 6 + [_c_int] * 6
                       + [_c_float] * 4 + [_c_ptr] * 3, _c_int),
     "ibgs_warp_info": ([_c_int] * 3 + [ctypes.POINTER(_c_int)], _c_int),
+    # xyz, scale, quat, opacity, sh, normal, offset, alive, P, K, active,
+    # view, full_proj, cam_pos, fx, fy, lim_x, lim_y, width, height, tile_h,
+    # tile_w, the 10 outputs, the stream
+    "ibgs_preprocess_fwd": ([_c_ptr] * 8 + [_c_ll, _c_int, _c_int]
+                            + [_c_ptr] * 3 + [_c_float] * 4 + [_c_int] * 4
+                            + [_c_ptr] * 11, _c_int),
+    # xyz, scale, quat, sh, normal, offset, P, K, active, view, full_proj,
+    # cam_pos, fx, fy, lim_x, lim_y, width, height, the 5 cotangents, their
+    # 10 strides, the 6 gradients, the stream
+    "ibgs_preprocess_bwd": ([_c_ptr] * 6 + [_c_ll, _c_int, _c_int]
+                            + [_c_ptr] * 3 + [_c_float] * 4 + [_c_int] * 2
+                            + [ctypes.POINTER(_c_ptr), ctypes.POINTER(_c_ll)]
+                            + [_c_ptr] * 7, _c_int),
+    "ibgs_preprocess_info": ([_c_int] * 2 + [ctypes.POINTER(_c_int)], _c_int),
     "ibgs_cuda_error_string": ([_c_int], ctypes.c_char_p),
 }
 
@@ -243,3 +258,56 @@ def occupancy(name: str, mode: int, buffer_len: int, sub_h: int,
         raise RuntimeError(f"{name} occupancy query failed: "
                            f"{error_string(err)} ({err})")
     return blocks.value, threads.value
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def preprocess_fwd(xyz, scale, quat, opacity, sh, normal, offset, alive,
+                   active, cam, lims, tile_h, tile_w, outs, stream) -> int:
+    """Launch ibgs_preprocess_fwd: contiguous float32 inputs (sh (P, K, 3)
+    or None for no colour, alive (P,) bool or None), the camera's
+    matrices and centre, `lims` the frustum limits; writes the 10 tensors
+    of `outs` (rgb not when sh is None).  Returns the CUDA error code of
+    the launch (0 = success)."""
+    return load("preprocess").ibgs_preprocess_fwd(
+        xyz.data_ptr(), scale.data_ptr(), quat.data_ptr(), opacity.data_ptr(),
+        _ptr(sh), normal.data_ptr(), offset.data_ptr(), _ptr(alive),
+        xyz.shape[0], 0 if sh is None else sh.shape[1], active,
+        cam.view.data_ptr(), cam.full_proj.data_ptr(), cam.cam_pos.data_ptr(),
+        cam.fx, cam.fy, *lims, cam.width, cam.height, tile_h, tile_w,
+        *(t.data_ptr() if t.numel() else None for t in outs), stream)
+
+
+def preprocess_bwd(xyz, scale, quat, sh, normal, offset, active, cam, lims,
+                   cts, grads, stream) -> int:
+    """Launch ibgs_preprocess_bwd: the forward's float inputs and camera,
+    `cts` the 5 cotangents (None = 0; read through their strides), writing
+    the 6 contiguous `grads` (sh's None when sh is None).  Returns the CUDA
+    error code of the launch."""
+    ptrs = (_c_ptr * 5)(*(_ptr(c) for c in cts))
+    strides = (_c_ll * 10)(*(v for c in cts for v in (
+        (0, 0) if c is None else
+        (c.stride(0), c.stride(1) if c.dim() > 1 else 0))))
+    return load("preprocess").ibgs_preprocess_bwd(
+        xyz.data_ptr(), scale.data_ptr(), quat.data_ptr(), _ptr(sh),
+        normal.data_ptr(), offset.data_ptr(), xyz.shape[0],
+        0 if sh is None else sh.shape[1], active, cam.view.data_ptr(),
+        cam.full_proj.data_ptr(), cam.cam_pos.data_ptr(), cam.fx, cam.fy,
+        *lims, cam.width, cam.height, ptrs, strides,
+        *(_ptr(g) for g in grads), stream)
+
+
+def preprocess_info(kernel: str, K: int) -> dict:
+    """Registers, local (spill) bytes per thread, CTAs one SM holds at once
+    and threads per CTA of `kernel` ("preprocess_fwd" or "preprocess_bwd")
+    for K SH coefficients (0: no colour)."""
+    out = (_c_int * 4)()
+    which = ("preprocess_fwd", "preprocess_bwd").index(kernel)
+    err = load("preprocess").ibgs_preprocess_info(which, K, out)
+    if err != 0:
+        raise RuntimeError(f"{kernel} attribute query failed: "
+                           f"{error_string(err)} ({err})")
+    return dict(zip(("registers", "local_bytes", "ctas_per_sm", "threads"),
+                    out))

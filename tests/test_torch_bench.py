@@ -178,7 +178,7 @@ BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
 ROW_KEYS = {"config", "resolution", "splats", "step_ms", "mpix_s",
             "vs_baseline", "first_s", "n_instances", "n_rows",
             "device_busy_ms", "idle_share", "launches", "blend_launches",
-            "warp_launches", "max_memory_allocated"}
+            "warp_launches", "preprocess_launches", "max_memory_allocated"}
 
 
 def test_bench_cli_prints_bench_py_schema():

@@ -30,6 +30,16 @@ instantiation: the slots of B <= 4 and B <= 8 and the generic loop) and S
 projections wholly out of bounds, NaN source texels (finite outputs: the
 pack maps NaN to 0), a NaN buffer depth and source depth, a band at row0
 272 and buffers with padded rows.
+
+The projection kernels (csrc/preprocess.cu, `-k preprocess`) are held to
+the plain version on the seeded cases of tests/torch_preprocess_cases.py
+(SH degrees 0..3, active degree below the maximum, rgb_override, a band,
+splats behind the camera, at the near plane, dead and nearly transparent,
+one exactly at view z = 0, 200,003 splats): the forward's integer fields
+equal, its float fields at the forward tolerance; the backward, per
+column, within 2x the float32 plain version's error against a float64 run
+of it + 1e-7 of the column's largest value, non-finite values in the
+plain version's places, repeats bit-identical.
 """
 import dataclasses
 import zlib
@@ -39,7 +49,9 @@ import pytest
 import torch
 
 from ibgs_tpu_torch.ops import blend, epilogue
+from ibgs_tpu_torch.ops import preprocess as pre
 from ibgs_tpu_torch.ops.blend_common import BlendConfig
+import torch_preprocess_cases as pcases
 
 FIELDS = ("color", "normal", "final_t", "n_contrib", "buf_depth",
           "buf_weight", "buf_contrib")
@@ -529,6 +541,165 @@ def test_warp_kernels_refuse_bad_inputs():
         with pytest.raises(ValueError):
             epilogue.rgb10_pack_cuda(im)
     assert epilogue.LAUNCHES == before
+
+
+# ------------------------------------------- the projection (preprocess)
+
+PRE_CASES = list(pcases.CASES) + list(pcases.ZERO_Z)
+
+
+def _pre_inputs(case, dev, n=400):
+    """The seeded inputs of `case` on `dev`: (preprocess's positional
+    arguments, alive, the cotangent table, the active degree, whether the
+    colour is an override)."""
+    deg, active, override, _, _ = {**pcases.CASES, **pcases.ZERO_Z}[case]
+    f, table = pcases.inputs(case, n)
+    t = {k: torch.as_tensor(v).to(dev) for k, v in f.items()}
+    args = (t["xyz"], t["scale"], t["quat"], t["opacity"],
+            None if override else t["sh"], active, t["normal"], t["offset"],
+            pcases.camera(dev), *pcases.TILE)
+    return args, t["alive"], torch.as_tensor(table).to(dev), t["rgb"]
+
+
+def _pre_bwd_args(args):
+    """preprocess_bwd_*'s leading arguments from preprocess's."""
+    x, s, q, _, sh, active, n, o, cam = args[:9]
+    return x, s, q, sh, active, n, o, cam
+
+
+def _assert_pre_bwd(k, p32, p64):
+    """Per column: the kernel's max |error| against the float64 plain
+    version at most 2x the float32 plain version's + 1e-7 of the column's
+    largest |value|; non-finite values in the plain version's places."""
+    for a, b, c in zip(k, p32, p64):
+        if a is None:
+            assert b is None
+            continue
+        P = a.shape[0]
+        a2, b2, c2 = (t.reshape(P, -1).double() for t in (a, b, c))
+        assert torch.equal(torch.isfinite(a2), torch.isfinite(b2))
+        fin = torch.isfinite(b2) & torch.isfinite(c2)
+        zero = torch.zeros((), dtype=torch.float64, device=a.device)
+        ek = torch.where(fin, (a2 - c2).abs(), zero).amax(0)
+        ep = torch.where(fin, (b2 - c2).abs(), zero).amax(0)
+        scale = torch.where(fin, c2.abs(), zero).amax(0)
+        assert bool((ek <= 2 * ep + 1e-7 * scale).all()), (ek, ep, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PRE_CASES + ["deg2_many"])
+def test_preprocess_kernels_match_plain(case):
+    """preprocess_fwd_cuda against preprocess_plain: integer fields equal,
+    float fields within 1e-5 abs + 1e-5 rel (NaN in the same places);
+    preprocess_bwd_cuda, on the strided cotangents of rasterize's table,
+    against autograd of the plain version by _assert_pre_bwd; two backward
+    runs bit-identical.  `deg2_many` takes 200,003 splats (a ragged last
+    CTA)."""
+    dev = _cuda()
+    n = 200_003 if case == "deg2_many" else 400
+    args, alive, table, rgb = _pre_inputs(
+        "deg2_active1" if case == "deg2_many" else case, dev, n)
+    override = args[4] is None
+    k = pre.preprocess_fwd_cuda(*args, alive)
+    p = pre.preprocess_plain(
+        *args, alive=alive,
+        rgb_override=rgb[:, :0] if override else None)
+    names = ("mean2d", "depth", "conic", "rgb", "plane_normal",
+             "plane_dist", "radius", "rect_min", "rect_max", "n_tiles")
+    for name, a in zip(names, k):
+        b = getattr(p, name)
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        if a.dtype == torch.int32:
+            assert torch.equal(a, b), name
+        else:
+            assert torch.equal(torch.isnan(a), torch.isnan(b)), name
+            fin = ~torch.isnan(b)
+            assert bool(((a - b).abs()[fin]
+                         <= 1e-5 + 1e-5 * b.abs()[fin]).all()), name
+    if case == "band":
+        from ibgs_tpu_torch.ops.rasterize import _band
+        sp_k = dataclasses.replace(p, **dict(zip(names, k)))
+        tiles_y = -(-pcases.BAND_ROWS // pcases.TILE[0])
+        for a, b in ((_band(sp_k, pcases.BAND_ROW0, tiles_y, pcases.TILE[0]),
+                      _band(p, pcases.BAND_ROW0, tiles_y, pcases.TILE[0])),):
+            for name in names[6:]:
+                assert torch.equal(getattr(a, name), getattr(b, name))
+    cts = pcases.cotangents(table, not override)
+    bargs = _pre_bwd_args(args)
+    k1 = pre.preprocess_bwd_cuda(*bargs, cts)
+    k2 = pre.preprocess_bwd_cuda(*bargs, cts)
+    p32 = pre.preprocess_bwd_plain(*bargs, cts)
+
+    def f64(x):
+        return x.double() if torch.is_tensor(x) else x
+    p64 = pre.preprocess_bwd_plain(*(f64(a) for a in bargs),
+                                   tuple(f64(c) for c in cts))
+    torch.cuda.synchronize()
+    _assert_pre_bwd(k1, p32, p64)
+    for a, b in zip(k1, k2):
+        assert (a is None and b is None) or _same_bits(a, b)
+    nonfinite = any(not bool(torch.isfinite(g).all()) for g in k1
+                    if g is not None)
+    assert nonfinite == (case == "zero_z")
+
+
+@pytest.mark.gpu
+def test_preprocess_function_launches_each_kernel_once():
+    """`preprocess` on CUDA tensors and autograd through it launch each
+    preprocess kernel exactly once, each wrapper one device launch, with
+    the plain version's outputs and gradients."""
+    dev = _cuda()
+    from ibgs_tpu_torch.utils import profiling
+    args, alive, table, _ = _pre_inputs("deg3_active2", dev)
+    leaves = [a.detach().requires_grad_(True) for a in
+              (args[0], args[1], args[2], args[4], args[6], args[7])]
+    full = (leaves[0], leaves[1], leaves[2], args[3], leaves[3], args[5],
+            leaves[4], leaves[5], *args[8:])
+    before = dict(pre.LAUNCHES)
+    sp = pre.preprocess(*full, alive=alive)
+    tab = torch.cat([sp.mean2d, sp.conic, sp.opacity[:, None], sp.rgb,
+                     sp.plane_normal, sp.plane_dist[:, None],
+                     torch.zeros(len(table), 2, device=dev)], dim=1)
+    grads = torch.autograd.grad((tab * table).sum(), leaves)
+    torch.cuda.synchronize()
+    assert {k: pre.LAUNCHES[k] - before[k] for k in before} == \
+        {"preprocess_fwd": 1, "preprocess_bwd": 1}
+    assert sp.opacity is args[3]
+    ref = pre.preprocess_plain(*args, alive=alive)
+    assert torch.equal(sp.radius, ref.radius)
+    bargs = _pre_bwd_args(args)
+    cts = pcases.cotangents(table)
+    for g, k in zip(grads, pre.preprocess_bwd_cuda(*bargs, cts)):
+        assert _same_bits(g, k)
+    for fn in (lambda: pre.preprocess_fwd_cuda(*args, alive),
+               lambda: pre.preprocess_bwd_cuda(*bargs, cts)):
+        prof = profiling.device_time(fn, dev)
+        assert prof.get("device_launches") == 1, prof
+
+
+@pytest.mark.gpu
+def test_preprocess_kernels_refuse_bad_inputs():
+    """The wrappers raise ValueError on what the kernels do not take and
+    count no launch."""
+    dev = _cuda()
+    args, alive, table, _ = _pre_inputs("deg2_active1", dev)
+    before = dict(pre.LAUNCHES)
+    bad = [(args[0].double(),) + args[1:],
+           (args[0].cpu(),) + args[1:],
+           args[:2] + (args[2].t().contiguous().t(),) + args[3:],
+           args[:4] + (args[4][:, :5].contiguous(),) + args[5:]]
+    for a in bad:
+        with pytest.raises(ValueError):
+            pre.preprocess_fwd_cuda(*a, alive)
+        with pytest.raises(ValueError):
+            pre.preprocess_bwd_cuda(*_pre_bwd_args(a),
+                                    pcases.cotangents(table))
+    with pytest.raises(ValueError):
+        pre.preprocess_fwd_cuda(*args, alive.float())
+    with pytest.raises(ValueError):
+        pre.preprocess_bwd_cuda(*_pre_bwd_args(args),
+                                pcases.cotangents(table.double()))
+    assert pre.LAUNCHES == before
 
 
 # ---------------------------------------------- densify, KNN and the loop
