@@ -1972,7 +1972,7 @@ def bench_phase(dev, failures):
                         "trace.json")
     t0 = time.perf_counter()
     summ = parse_trace.summarize(parse_trace.load_events(path), BENCH_ITERS,
-                                 top_n=12)
+                                 top_n=20)
     own_ms, own_n, own_lost = trace_device_ms(path)
     rec["parse_trace"] = dict(summ, s=time.perf_counter() - t0,
                               trace_bytes=os.path.getsize(path))
@@ -1984,9 +1984,9 @@ def bench_phase(dev, failures):
                         f"{BENCH_ITERS} in {summ['device_events']} events "
                         f"({summ['lost_launches']} lost), the trace holds "
                         f"{own_ms} ms in {own_n} ({own_lost} lost)")
-    steps = [x for x in summ["labels"] if x[0] == "bench_step"]
-    if not steps or steps[0][3] != BENCH_ITERS:
-        failures.append(f"bench: the trace's bench_step labels {steps}")
+    steps = [x for x in summ["spans"] if x[0] == "bench_step"]
+    if not steps or steps[0][6] != BENCH_ITERS:
+        failures.append(f"bench: the trace's bench_step spans {steps}")
     shutil.rmtree(BENCH_TRACE_DIR, ignore_errors=True)
 
     # kernel_probe: timed, then both kernels against plain on a slice

@@ -29,7 +29,7 @@ from ibgs_tpu_torch.models.gaussians import GaussianModel
 from ibgs_tpu_torch.ops.rasterize import RasterConfig
 from ibgs_tpu_torch.renderer import (render_depth_view, render_view,
                                      source_views_from_stacks)
-from ibgs_tpu_torch.utils import image_io
+from ibgs_tpu_torch.utils import image_io, profiling
 
 
 def _np(x) -> np.ndarray:
@@ -86,6 +86,7 @@ class EvalRenderer:
                            w2v=w2v.to(self.device),
                            centers=centers.to(self.device))
         self.scene = None
+        self.served = 0         # views rendered by render_one
 
     @classmethod
     def from_scene(cls, model: GaussianModel,
@@ -103,22 +104,26 @@ class EvalRenderer:
     @torch.no_grad()
     def render_one(self, cam: Camera, nearest) -> dict:
         """Re-render the source depths, then render and fuse one view."""
-        nbrs = list(nearest[: self.opt.number_src_frames])
-        depths = [render_depth_view(self.model, self.train_cameras[i],
-                                    self.rcfg, self.opt.learnt_normal)
-                  for i in nbrs]
-        S = self.rcfg.max_src
-        idx = torch.zeros(S, dtype=torch.long)
-        idx[: len(nbrs)] = torch.as_tensor(nbrs, dtype=torch.long)
-        idx = idx.to(self.device)
-        dstack = torch.stack(
-            depths + [torch.zeros(self.H, self.W, device=self.device)]
-            * (S - len(depths)))
-        src = source_views_from_stacks(
-            self.stacks["images"][idx], dstack, self.stacks["w2v"][idx],
-            self.stacks["centers"][idx],
-            torch.arange(S, device=self.device), len(nbrs), cam)
-        return self.render_with_sources(cam, src)
+        self.served += 1
+        with profiling.annotate("render_one", self.served):
+            with profiling.annotate("source_depths"):
+                nbrs = list(nearest[: self.opt.number_src_frames])
+                depths = [render_depth_view(self.model,
+                                            self.train_cameras[i], self.rcfg,
+                                            self.opt.learnt_normal)
+                          for i in nbrs]
+                S = self.rcfg.max_src
+                idx = torch.zeros(S, dtype=torch.long)
+                idx[: len(nbrs)] = torch.as_tensor(nbrs, dtype=torch.long)
+                idx = idx.to(self.device)
+                dstack = torch.stack(
+                    depths + [torch.zeros(self.H, self.W, device=self.device)]
+                    * (S - len(depths)))
+                src = source_views_from_stacks(
+                    self.stacks["images"][idx], dstack,
+                    self.stacks["w2v"][idx], self.stacks["centers"][idx],
+                    torch.arange(S, device=self.device), len(nbrs), cam)
+            return self.render_with_sources(cam, src)
 
     @torch.no_grad()
     def render_with_sources(self, cam: Camera, src) -> dict:

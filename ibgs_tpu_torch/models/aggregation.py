@@ -14,6 +14,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ibgs_tpu_torch.ops.epilogue import bilinear_sample
+from ibgs_tpu_torch.utils import profiling
 
 
 def _nearest_index(m: int, n: int, device) -> torch.Tensor:
@@ -145,54 +146,56 @@ def fuse_color(net: ColorFusionResidualNet, render, warped_image, cam_feat,
     burn-in completes (`burned_in_gauss < 1`) the Gaussian branch is
     detached.  With `enable_mix_precision` the net runs under bf16
     autocast and its residual comes back as float32."""
-    g = 1.0 if burned_in_gauss >= 1.0 else 0.0
+    with profiling.annotate("net"):
+        g = 1.0 if burned_in_gauss >= 1.0 else 0.0
 
-    def gate(x):
-        return g * x + (1.0 - g) * x.detach()
+        def gate(x):
+            return g * x + (1.0 - g) * x.detach()
 
-    render_g = gate(render)
-    warped = gate(warped_image[:nb_visible])
-    feat = gate(cam_feat[:nb_visible])
-    ray = gate(camera_ray)
-    mdd = min_depth_diff.detach()
+        render_g = gate(render)
+        warped = gate(warped_image[:nb_visible])
+        feat = gate(cam_feat[:nb_visible])
+        ray = gate(camera_ray)
+        mdd = min_depth_diff.detach()
 
-    if enable_exposure_correction:
-        first = warped_image[0] * use_first_src_mask[..., None]
-        render_g, _A = exposure_affine(render_g, first, use_first_src_mask)
+        if enable_exposure_correction:
+            first = warped_image[0] * use_first_src_mask[..., None]
+            render_g, _A = exposure_affine(render_g, first, use_first_src_mask)
 
-    valid = (feat.sum(-1, keepdim=True) > 0.0).to(render.dtype)
-    residual_in = (warped - render_g[None]) * valid
-    view_feats = torch.cat([residual_in, feat], dim=-1)     # (S',H,W,7)
-    view_feats = view_feats.permute(1, 2, 0, 3)             # (H,W,S',7)
+        valid = (feat.sum(-1, keepdim=True) > 0.0).to(render.dtype)
+        residual_in = (warped - render_g[None]) * valid
+        view_feats = torch.cat([residual_in, feat], dim=-1)     # (S',H,W,7)
+        view_feats = view_feats.permute(1, 2, 0, 3)             # (H,W,S',7)
 
-    def apply_net(vf, r, rg):
-        if enable_mix_precision:
-            with torch.autocast(device_type=render.device.type,
-                                dtype=torch.bfloat16):
-                return net(vf, r, rg).to(render.dtype)
-        return net(vf, r, rg)
+        def apply_net(vf, r, rg):
+            if enable_mix_precision:
+                with torch.autocast(device_type=render.device.type,
+                                    dtype=torch.bfloat16):
+                    return net(vf, r, rg).to(render.dtype)
+            return net(vf, r, rg)
 
-    H, W = render.shape[0], render.shape[1]
-    if residual_resolution_scale != 1.0:
-        H2 = int(H * residual_resolution_scale)
-        W2 = int(W * residual_resolution_scale)
-        Sv = view_feats.shape[2]
-        vf = resize_align_corners(view_feats.reshape(H, W, Sv * 7), H2,
-                                  W2).reshape(H2, W2, Sv, 7)
-        render_n = resize_align_corners(render_g, H2, W2)
-        ray_n = resize_align_corners(ray, H2, W2)
-        ray_n = ray_n / (torch.linalg.norm(ray_n, dim=-1, keepdim=True)
-                         + 1e-10)
-        residual = resize_align_corners(apply_net(vf, ray_n, render_n), H, W)
-    else:
-        residual = apply_net(view_feats, ray, render_g)
-    image_pred = burned_in_gauss * render_g + residual
-    any_valid = (warped_image.sum(dim=(1, 2, 3)) != 0).sum() > 0
-    return {
-        "image_pred": image_pred,
-        "residual": residual,
-        "valid_warp_mask": (mdd < 0.999).to(render.dtype),
-        "burned_in_gauss": burned_in_gauss,
-        "any_valid": any_valid,
-        "exposed_render": render_g,
-    }
+        H, W = render.shape[0], render.shape[1]
+        if residual_resolution_scale != 1.0:
+            H2 = int(H * residual_resolution_scale)
+            W2 = int(W * residual_resolution_scale)
+            Sv = view_feats.shape[2]
+            vf = resize_align_corners(view_feats.reshape(H, W, Sv * 7), H2,
+                                      W2).reshape(H2, W2, Sv, 7)
+            render_n = resize_align_corners(render_g, H2, W2)
+            ray_n = resize_align_corners(ray, H2, W2)
+            ray_n = ray_n / (torch.linalg.norm(ray_n, dim=-1, keepdim=True)
+                             + 1e-10)
+            residual = resize_align_corners(apply_net(vf, ray_n, render_n),
+                                            H, W)
+        else:
+            residual = apply_net(view_feats, ray, render_g)
+        image_pred = burned_in_gauss * render_g + residual
+        any_valid = (warped_image.sum(dim=(1, 2, 3)) != 0).sum() > 0
+        return {
+            "image_pred": image_pred,
+            "residual": residual,
+            "valid_warp_mask": (mdd < 0.999).to(render.dtype),
+            "burned_in_gauss": burned_in_gauss,
+            "any_valid": any_valid,
+            "exposed_render": render_g,
+        }

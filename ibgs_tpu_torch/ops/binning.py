@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from ibgs_tpu_torch.ops.preprocess import Splats2D, to_i32
+from ibgs_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -174,53 +175,56 @@ def bin_splats(sp: Splats2D, tiles_x: int, tiles_y: int, cap: int = 0,
     are retagged as culled (tile = num_tiles).  With `staircase=True`
     (requires cull_tab) the two-level staircase expansion is used instead.
     `cap` / `row_cap` of 0 mean no cap."""
-    if staircase:
-        if cull_tab is None:
-            raise ValueError("staircase expansion needs cull_tab")
-        return _bin_splats_staircase(sp, tiles_x, tiles_y, cap, cull_tab,
-                                     tile_h, tile_w, row_cap)
-    num_tiles = tiles_x * tiles_y
-    order = _depth_order(sp)
-    rank, offsets, total = _expand(sp.n_tiles[order].long(), cap)
-    gid = order[rank]
-    rx = sp.rect_min[gid, 0].long()
-    ry = sp.rect_min[gid, 1].long()
-    rw = torch.clamp((sp.rect_max[gid, 0] - sp.rect_min[gid, 0]).long(), min=1)
-    inst = torch.arange(rank.shape[0], device=rank.device)
-    local = inst - offsets[rank]
-    tx = rx + local % rw
-    ty = ry + local // rw
-    tile = ty * tiles_x + tx
+    with profiling.annotate("binning"):
+        if staircase:
+            if cull_tab is None:
+                raise ValueError("staircase expansion needs cull_tab")
+            return _bin_splats_staircase(sp, tiles_x, tiles_y, cap, cull_tab,
+                                         tile_h, tile_w, row_cap)
+        num_tiles = tiles_x * tiles_y
+        order = _depth_order(sp)
+        rank, offsets, total = _expand(sp.n_tiles[order].long(), cap)
+        gid = order[rank]
+        rx = sp.rect_min[gid, 0].long()
+        ry = sp.rect_min[gid, 1].long()
+        rw = torch.clamp((sp.rect_max[gid, 0] - sp.rect_min[gid, 0]).long(),
+                         min=1)
+        inst = torch.arange(rank.shape[0], device=rank.device)
+        local = inst - offsets[rank]
+        tx = rx + local % rw
+        ty = ry + local // rw
+        tile = ty * tiles_x + tx
 
-    if cull_tab is not None:
-        cf = cull_tab[gid]
-        mx, my = cf[:, 0], cf[:, 1]
-        ca, cb, cc, thr = cf[:, 2], cf[:, 3], cf[:, 4], cf[:, 5]
-        # pixel offsets from the mean over this tile's pixel rectangle
-        u_lo = (tx * tile_w).to(torch.float32) - mx
-        u_hi = u_lo + (tile_w - 1)
-        v_lo = (ty * tile_h).to(torch.float32) - my
-        v_hi = v_lo + (tile_h - 1)
-        inside = (u_lo <= 0.0) & (u_hi >= 0.0) & (v_lo <= 0.0) & (v_hi >= 0.0)
+        if cull_tab is not None:
+            cf = cull_tab[gid]
+            mx, my = cf[:, 0], cf[:, 1]
+            ca, cb, cc, thr = cf[:, 2], cf[:, 3], cf[:, 4], cf[:, 5]
+            # pixel offsets from the mean over this tile's pixel rectangle
+            u_lo = (tx * tile_w).to(torch.float32) - mx
+            u_hi = u_lo + (tile_w - 1)
+            v_lo = (ty * tile_h).to(torch.float32) - my
+            v_hi = v_lo + (tile_h - 1)
+            inside = ((u_lo <= 0.0) & (u_hi >= 0.0) & (v_lo <= 0.0)
+                      & (v_hi >= 0.0))
 
-        def _qu(ue):  # min over the edge u = ue, v in [v_lo, v_hi]
-            vs = torch.clamp(-cb * ue / cc, v_lo, v_hi)
-            return 0.5 * ca * ue * ue + cb * ue * vs + 0.5 * cc * vs * vs
+            def _qu(ue):  # min over the edge u = ue, v in [v_lo, v_hi]
+                vs = torch.clamp(-cb * ue / cc, v_lo, v_hi)
+                return 0.5 * ca * ue * ue + cb * ue * vs + 0.5 * cc * vs * vs
 
-        def _qv(ve):  # min over the edge v = ve, u in [u_lo, u_hi]
-            us = torch.clamp(-cb * ve / ca, u_lo, u_hi)
-            return 0.5 * cc * ve * ve + cb * us * ve + 0.5 * ca * us * us
+            def _qv(ve):  # min over the edge v = ve, u in [u_lo, u_hi]
+                us = torch.clamp(-cb * ve / ca, u_lo, u_hi)
+                return 0.5 * cc * ve * ve + cb * us * ve + 0.5 * ca * us * us
 
-        qmin = torch.minimum(torch.minimum(_qu(u_lo), _qu(u_hi)),
-                             torch.minimum(_qv(v_lo), _qv(v_hi)))
-        qmin = torch.where(inside, 0.0, qmin)
-        keep = ((qmin <= thr + (1e-3 + 1e-3 * torch.abs(thr)))
-                | (ca <= 0.0) | (cc <= 0.0))
-        tile = torch.where(keep, tile, num_tiles)
+            qmin = torch.minimum(torch.minimum(_qu(u_lo), _qu(u_hi)),
+                                 torch.minimum(_qv(v_lo), _qv(v_hi)))
+            qmin = torch.where(inside, 0.0, qmin)
+            keep = ((qmin <= thr + (1e-3 + 1e-3 * torch.abs(thr)))
+                    | (ca <= 0.0) | (cc <= 0.0))
+            tile = torch.where(keep, tile, num_tiles)
 
-    seg_off = torch.cat([offsets, offsets.new_tensor([total])])
-    return _finish(tile, rank, order, num_tiles, inst.shape[0], total,
-                   seg_off)
+        seg_off = torch.cat([offsets, offsets.new_tensor([total])])
+        return _finish(tile, rank, order, num_tiles, inst.shape[0], total,
+                       seg_off)
 
 
 class _PackRows(torch.autograd.Function):
@@ -262,5 +266,6 @@ def pack_rows(feats_g: torch.Tensor, bins: TileBins) -> torch.Tensor:
     """Instance assembly: (P, C) per-Gaussian rows → (n, C) per-instance
     rows in tile-sorted order (culled rows zeroed); differentiable w.r.t.
     `feats_g` through `_PackRows`."""
-    return _PackRows.apply(feats_g, bins.gauss_id, bins.inst_valid,
-                           bins.slot, bins.seg_off, bins.order)
+    with profiling.annotate("binning"):
+        return _PackRows.apply(feats_g, bins.gauss_id, bins.inst_valid,
+                               bins.slot, bins.seg_off, bins.order)

@@ -36,6 +36,7 @@ import torch
 from ibgs_tpu_torch.core.camera import device_scalar
 from ibgs_tpu_torch.ops import blend_common as bc
 from ibgs_tpu_torch.ops.blend_common import BlendConfig, BlendOutputs
+from ibgs_tpu_torch.utils import profiling
 
 CF = 16             # packed feature channels of the JAX package's table
 # feature channel layout (columns of the per-instance table)
@@ -493,6 +494,7 @@ def blend_packed(feats_inst: torch.Tensor, bins, Wp: int, Hp: int,
     `bins` supplies the int32 `tile_start` / `tile_stop` ranges.  CUDA
     tensors go through the kernels; CPU tensors through the plain
     versions."""
-    return BlendOutputs(*_BlendFunction.apply(
-        feats_inst, bins.tile_start, bins.tile_stop, Wp, Hp, float(fx),
-        float(fy), float(cx), float(cy), cfg, float(row0)))
+    with profiling.annotate("blend"):
+        return BlendOutputs(*_BlendFunction.apply(
+            feats_inst, bins.tile_start, bins.tile_stop, Wp, Hp, float(fx),
+            float(fy), float(cx), float(cy), cfg, float(row0)))

@@ -32,6 +32,7 @@ import torch
 from ibgs_tpu_torch.core.camera import Camera, device_scalar
 from ibgs_tpu_torch.ops.blend_common import BlendOutputs
 from ibgs_tpu_torch.ops.preprocess import to_i32
+from ibgs_tpu_torch.utils import profiling
 
 EPS = 1.0e-8
 RGB10_SCALE = 1023.0
@@ -436,8 +437,9 @@ def warp_views(bd, bw, tables, r2s, pdx, pdy, median, depths, fx, fy, cx,
 
 def median_depth_only(blend: BlendOutputs) -> torch.Tensor:
     """Depth-only epilogue: buffer-weighted mean of the buffer depths."""
-    tot = blend.buf_weight.sum(-1)
-    return (blend.buf_weight * blend.buf_depth).sum(-1) / (tot + EPS)
+    with profiling.annotate("epilogue"):
+        tot = blend.buf_weight.sum(-1)
+        return (blend.buf_weight * blend.buf_depth).sum(-1) / (tot + EPS)
 
 
 def ibr_epilogue(blend: BlendOutputs, cam: Camera, src: SourceViews,
@@ -446,92 +448,94 @@ def ibr_epilogue(blend: BlendOutputs, cam: Camera, src: SourceViews,
     """The epilogue of a blend over image rows [row0, row0 + H): the rays
     and the warp use those rows' pixel centres; the sources are full
     frames."""
-    H, W = blend.final_t.shape
-    S = src.images.shape[0]
-    dev = blend.final_t.device
-    # the source views are constants
-    images = src.images.detach().contiguous()
-    depths = src.depths.detach().contiguous()
-    r2s = src.ref_to_src.detach()
-    src_pos = src.cam_pos.detach()
+    with profiling.annotate("epilogue"):
+        H, W = blend.final_t.shape
+        S = src.images.shape[0]
+        dev = blend.final_t.device
+        # the source views are constants
+        images = src.images.detach().contiguous()
+        depths = src.depths.detach().contiguous()
+        r2s = src.ref_to_src.detach()
+        src_pos = src.cam_pos.detach()
 
-    xs = torch.arange(W, dtype=torch.float32, device=dev)
-    ys = torch.arange(H, dtype=torch.float32, device=dev) + float(row0)
-    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
-    pdx = (gx - cam.cx) / device_scalar(cam.fx, dev)
-    pdy = (gy - cam.cy) / device_scalar(cam.fy, dev)
+        xs = torch.arange(W, dtype=torch.float32, device=dev)
+        ys = torch.arange(H, dtype=torch.float32, device=dev) + float(row0)
+        gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+        pdx = (gx - cam.cx) / device_scalar(cam.fx, dev)
+        pdy = (gy - cam.cy) / device_scalar(cam.fy, dev)
 
-    bw = blend.buf_weight.permute(2, 0, 1)   # (B, H, W)
-    bd = blend.buf_depth.permute(2, 0, 1)
-    used = bw != 0.0
-    tot_w = (bw * used).sum(0)
-    median = (bw * bd).sum(0) / (tot_w + EPS)
+        bw = blend.buf_weight.permute(2, 0, 1)   # (B, H, W)
+        bd = blend.buf_depth.permute(2, 0, 1)
+        used = bw != 0.0
+        tot_w = (bw * used).sum(0)
+        median = (bw * bd).sum(0) / (tot_w + EPS)
 
-    # the warp and the occlusion test's depth sample (no gradient) in one
-    wsum_color, wsum, wdepth, depth_err = warp_views(
-        bd, bw, rgb10_tables(images), r2s, pdx, pdy, median.detach(),
-        depths, cam.fx, cam.fy, cam.cx, cam.cy)
+        # the warp and the occlusion test's depth sample (no gradient) in one
+        wsum_color, wsum, wdepth, depth_err = warp_views(
+            bd, bw, rgb10_tables(images), r2s, pdx, pdy, median.detach(),
+            depths, cam.fx, cam.fy, cam.cx, cam.cy)
 
-    # median contributor window (min/max over used entries, seeded with
-    # slot 0)
-    contrib = blend.buf_contrib
-    used_hwb = blend.buf_weight != 0.0
-    low = torch.minimum(
-        torch.where(used_hwb, contrib, 2 ** 30).amin(-1), contrib[..., 0])
-    high = torch.maximum(
-        torch.where(used_hwb, contrib, 0).amax(-1), contrib[..., 0])
+        # median contributor window (min/max over used entries, seeded with
+        # slot 0)
+        contrib = blend.buf_contrib
+        used_hwb = blend.buf_weight != 0.0
+        low = torch.minimum(
+            torch.where(used_hwb, contrib, 2 ** 30).amin(-1), contrib[..., 0])
+        high = torch.maximum(
+            torch.where(used_hwb, contrib, 0).amax(-1), contrib[..., 0])
 
-    # median point and world-space viewing ray
-    mpt = torch.stack([pdx * median, pdy * median, median], dim=-1)
-    d = mpt - cam.view[:3, 3]
-    V = cam.view[:3, :3]
-    mpt_world = torch.stack(
-        [d[..., 0] * V[0, k] + d[..., 1] * V[1, k] + d[..., 2] * V[2, k]
-         for k in range(3)], dim=-1)
-    ray = mpt_world - cam.cam_pos
-    ray = (ray * torch.rsqrt((ray * ray).sum(-1, keepdim=True) + EPS)
-           ).detach()
-    mpt_world_c = mpt_world.detach()
+        # median point and world-space viewing ray
+        mpt = torch.stack([pdx * median, pdy * median, median], dim=-1)
+        d = mpt - cam.view[:3, 3]
+        V = cam.view[:3, :3]
+        mpt_world = torch.stack(
+            [d[..., 0] * V[0, k] + d[..., 1] * V[1, k] + d[..., 2] * V[2, k]
+             for k in range(3)], dim=-1)
+        ray = mpt_world - cam.cam_pos
+        ray = (ray * torch.rsqrt((ray * ray).sum(-1, keepdim=True) + EPS)
+               ).detach()
+        mpt_world_c = mpt_world.detach()
 
-    s_ids = torch.arange(S, dtype=torch.int32, device=dev)[:, None, None]
-    valid = (wdepth > 0.0) & (depth_err < depth_error_threshold) \
-        & (s_ids < src.count)
+        s_ids = torch.arange(S, dtype=torch.int32, device=dev)[:, None, None]
+        valid = (wdepth > 0.0) & (depth_err < depth_error_threshold) \
+            & (s_ids < src.count)
 
-    # valid sources first, in source order: packed slot k takes x[s] from
-    # the unique s with valid[s] and rank[s] == k
-    rank = torch.cumsum(valid.to(torch.int32), dim=0) - 1
-    n_valid = valid.sum(dim=0)
-    sel = [valid[s] & (rank[s] == s_ids) for s in range(S)]   # per-s (S,H,W)
+        # valid sources first, in source order: packed slot k takes x[s] from
+        # the unique s with valid[s] and rank[s] == k
+        rank = torch.cumsum(valid.to(torch.int32), dim=0) - 1
+        n_valid = valid.sum(dim=0)
+        # per-s (S, H, W)
+        sel = [valid[s] & (rank[s] == s_ids) for s in range(S)]
 
-    def pack(x):
-        out = 0
-        for s in range(S):
-            m = sel[s].reshape(sel[s].shape + (1,) * (x.ndim - 3))
-            out = out + torch.where(m, x[s][None], 0)
-        return out
+        def pack(x):
+            out = 0
+            for s in range(S):
+                m = sel[s].reshape(sel[s].shape + (1,) * (x.ndim - 3))
+                out = out + torch.where(m, x[s][None], 0)
+            return out
 
-    valid_p = s_ids < n_valid
-    warped = wsum_color / (wsum[..., None] + EPS)
-    warped_p = pack(warped)
+        valid_p = s_ids < n_valid
+        warped = wsum_color / (wsum[..., None] + EPS)
+        warped_p = pack(warped)
 
-    src_dir = mpt_world_c[None] - src_pos[:, None, None, :]
-    src_dir = src_dir * torch.rsqrt((src_dir * src_dir).sum(-1, keepdim=True)
-                                    + EPS)
-    ray_dot = (src_dir * ray[None]).sum(-1)
-    dcam = ((cam.cam_pos - src_pos)[:, None, None, :]
-            * torch.ones(S, H, W, 3, device=dev))
-    feat = torch.cat([dcam, ray_dot[..., None]], dim=-1)
-    feat_p = pack(feat).detach()
+        src_dir = mpt_world_c[None] - src_pos[:, None, None, :]
+        src_dir = src_dir * torch.rsqrt(
+            (src_dir * src_dir).sum(-1, keepdim=True) + EPS)
+        ray_dot = (src_dir * ray[None]).sum(-1)
+        dcam = ((cam.cam_pos - src_pos)[:, None, None, :]
+                * torch.ones(S, H, W, 3, device=dev))
+        feat = torch.cat([dcam, ray_dot[..., None]], dim=-1)
+        feat_p = pack(feat).detach()
 
-    idx_p = torch.where(valid_p, pack(s_ids.expand(S, H, W)), -1)
-    wsum_p = pack(wsum).detach()
+        idx_p = torch.where(valid_p, pack(s_ids.expand(S, H, W)), -1)
+        wsum_p = pack(wsum).detach()
 
-    min_err = torch.where(valid, depth_err, 1.0).amin(dim=0)
-    min_err = torch.clamp(min_err, max=1.0).detach()
+        min_err = torch.where(valid, depth_err, 1.0).amin(dim=0)
+        min_err = torch.clamp(min_err, max=1.0).detach()
 
-    return IBROutputs(
-        median_depth=median, camera_ray=ray, warped_image=warped_p,
-        cam_feat=feat_p, min_depth_diff=min_err,
-        valid_src_index=idx_p.to(torch.int32), valid_src_weight=wsum_p,
-        use_first_src_mask=valid[0].to(torch.int32),
-        low_contrib=low, high_contrib=high)
+        return IBROutputs(
+            median_depth=median, camera_ray=ray, warped_image=warped_p,
+            cam_feat=feat_p, min_depth_diff=min_err,
+            valid_src_index=idx_p.to(torch.int32), valid_src_weight=wsum_p,
+            use_first_src_mask=valid[0].to(torch.int32),
+            low_contrib=low, high_contrib=high)

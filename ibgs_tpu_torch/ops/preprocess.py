@@ -32,6 +32,7 @@ from torch.autograd.function import once_differentiable
 from ibgs_tpu_torch.core import sh as shlib
 from ibgs_tpu_torch.core import transforms as tf
 from ibgs_tpu_torch.core.camera import Camera
+from ibgs_tpu_torch.utils import profiling
 
 NEAR_CULL_Z = 0.2
 COV2D_DILATION = 0.3
@@ -486,14 +487,15 @@ def preprocess(
     CUDA tensors, the plain version on CPU tensors.  `opacity` and
     `rgb_override` (which replaces the SH colour) pass through as they
     are."""
-    if rgb_override is not None:
-        sh_coeffs = None
-    (mean2d, depth, conic, rgb, n_cam, dist_cam, radius, rect_min, rect_max,
-     n_tiles) = _Preprocess.apply(
-        xyz, scale, quat, opacity, sh_coeffs, plane_normal_world,
-        plane_offset, alive, (int(active_sh_degree), cam, tile_h, tile_w))
-    return Splats2D(
-        mean2d=mean2d, depth=depth, conic=conic, opacity=opacity,
-        rgb=rgb if rgb_override is None else rgb_override,
-        plane_normal=n_cam, plane_dist=dist_cam, radius=radius,
-        rect_min=rect_min, rect_max=rect_max, n_tiles=n_tiles)
+    with profiling.annotate("projection"):
+        if rgb_override is not None:
+            sh_coeffs = None
+        (mean2d, depth, conic, rgb, n_cam, dist_cam, radius, rect_min,
+         rect_max, n_tiles) = _Preprocess.apply(
+            xyz, scale, quat, opacity, sh_coeffs, plane_normal_world,
+            plane_offset, alive, (int(active_sh_degree), cam, tile_h, tile_w))
+        return Splats2D(
+            mean2d=mean2d, depth=depth, conic=conic, opacity=opacity,
+            rgb=rgb if rgb_override is None else rgb_override,
+            plane_normal=n_cam, plane_dist=dist_cam, radius=radius,
+            rect_min=rect_min, rect_max=rect_max, n_tiles=n_tiles)

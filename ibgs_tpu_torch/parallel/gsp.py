@@ -52,6 +52,7 @@ from ibgs_tpu_torch.parallel import collectives as C
 from ibgs_tpu_torch.parallel.sharding import (_band_camera, _grad_list,
                                               _leaves, source_at)
 from ibgs_tpu_torch.train import losses
+from ibgs_tpu_torch.utils import profiling
 
 # per-Gaussian (leading-P) fields of GaussianModel, sharded over gs
 _SHARD_FIELDS = ("params", "mu", "nu", "alive", "max_radii2d", "grad_accum",
@@ -385,6 +386,12 @@ def gsp_full_train_step(opt, rcfg: RasterConfig, net, phase, mesh,
 
     def step(state, cam_arrays, cam_uids, gts, srcs, iteration: int, bg,
              use_app: bool, burned_in: float, net_lr: float):
+        with profiling.annotate("train_step", iteration):
+            return shard_step(state, cam_arrays, cam_uids, gts, srcs,
+                              iteration, bg, use_app, burned_in, net_lr)
+
+    def shard_step(state, cam_arrays, cam_uids, gts, srcs, iteration: int,
+                   bg, use_app: bool, burned_in: float, net_lr: float):
         model_loc = state.model
         cam = _band_camera(cam_arrays, width, height, i)
         dev = model_loc.alive.device

@@ -11,6 +11,7 @@ from ibgs_tpu_torch.core.camera import Camera
 from ibgs_tpu_torch.models.gaussians import GaussianModel
 from ibgs_tpu_torch.ops.epilogue import SourceViews
 from ibgs_tpu_torch.ops.rasterize import RasterConfig, rasterize
+from ibgs_tpu_torch.utils import profiling
 
 
 def depth_to_normal(cam: Camera, depth: torch.Tensor) -> torch.Tensor:
@@ -48,19 +49,22 @@ def render_view(model: GaussianModel, cam: Camera, cfg: RasterConfig,
                 screen_dummy_abs: Optional[torch.Tensor] = None):
     """One differentiable render.  Returns (RenderResult, depth_normal |
     None)."""
-    normal_w, offset = model.oriented_normal(cam.cam_pos, learnt=learnt_normal)
-    res = rasterize(
-        xyz=model.params.xyz, scale=model.scale, quat=model.quat_unit,
-        opacity=model.opacity, sh_coeffs=model.sh_coeffs,
-        active_sh_degree=model.active_sh_degree, normal_world=normal_w,
-        plane_offset=offset, cam=cam, bg=bg, cfg=cfg, src=src,
-        alive=model.alive, render_geo=render_geo, depth_only=depth_only,
-        screen_dummy=screen_dummy, screen_dummy_abs=screen_dummy_abs)
-    dnormal = None
-    if return_depth_normal and (render_geo or depth_only):
-        dn = depth_to_normal(cam, res.median_depth)
-        dnormal = dn * torch.rsqrt((dn * dn).sum(-1, keepdim=True) + 1e-16)
-    return res, dnormal
+    with profiling.annotate("render"):
+        normal_w, offset = model.oriented_normal(cam.cam_pos,
+                                                 learnt=learnt_normal)
+        res = rasterize(
+            xyz=model.params.xyz, scale=model.scale, quat=model.quat_unit,
+            opacity=model.opacity, sh_coeffs=model.sh_coeffs,
+            active_sh_degree=model.active_sh_degree, normal_world=normal_w,
+            plane_offset=offset, cam=cam, bg=bg, cfg=cfg, src=src,
+            alive=model.alive, render_geo=render_geo, depth_only=depth_only,
+            screen_dummy=screen_dummy, screen_dummy_abs=screen_dummy_abs)
+        dnormal = None
+        if return_depth_normal and (render_geo or depth_only):
+            dn = depth_to_normal(cam, res.median_depth)
+            dnormal = dn * torch.rsqrt((dn * dn).sum(-1, keepdim=True)
+                                       + 1e-16)
+        return res, dnormal
 
 
 def render_depth_view(model: GaussianModel, cam: Camera, cfg: RasterConfig,

@@ -385,17 +385,16 @@ def train(
         burned_in = float(np.float32((burn + 1.0) / 2.0))
 
         prev_state = state     # kept one step for the debug dump below
-        with profiling.step_annotation("train_step", it, dev):
-            if mesh is None:
-                state, aux = step_fn(state, cam, cam_idx, gt, src, it, bg,
-                                     use_app, burned_in, net_lr)
-            else:
-                state, aux = step_fn(
-                    state, sharding._cam_stack(
-                        [scene.train_cameras[ci] for ci in cam_idxs]),
-                    cam_idxs, stacks["images"][cam_idxs],
-                    sharding.stack_sources([s for _, s in src_packs]), it,
-                    bg, use_app, burned_in, net_lr)
+        if mesh is None:
+            state, aux = step_fn(state, cam, cam_idx, gt, src, it, bg,
+                                 use_app, burned_in, net_lr)
+        else:
+            state, aux = step_fn(
+                state, sharding._cam_stack(
+                    [scene.train_cameras[ci] for ci in cam_idxs]),
+                cam_idxs, stacks["images"][cam_idxs],
+                sharding.stack_sources([s for _, s in src_packs]), it,
+                bg, use_app, burned_in, net_lr)
 
         # debug mode: a per-step check of the losses and gradients; the
         # first non-finite step dumps its inputs to snapshot_fw.npz (the

@@ -29,6 +29,7 @@ from ibgs_tpu_torch.models.gaussians import (PARAM_FIELDS, GaussianModel,
 from ibgs_tpu_torch.ops.epilogue import SourceViews
 from ibgs_tpu_torch.ops.rasterize import RasterConfig
 from ibgs_tpu_torch.train import losses
+from ibgs_tpu_torch.utils import profiling
 
 APP_CAPACITY = 1600     # fixed image capacity of the exposure table
 
@@ -100,50 +101,51 @@ def ibgs_objective(opt: OptimizationParams, phase: StepPhase, net,
     photometric, and the colour-aggregation loss with its burn-in gating.
     Image inputs are full-frame (H, W, ...); `ibr` is an IBROutputs (or
     None when phase.render_geo is False).  Returns (total, aux scalars)."""
-    dev = image.device
-    ssim_loss = 1.0 - losses.ssim(image, gt)
-    app_image = renderer.apply_exposure(image, app_ab, cam_uid)
-    l1_plain = losses.l1(image, gt)
-    l1_app = losses.l1(app_image, gt)
-    Ll1 = torch.where(torch.tensor(bool(use_app), device=dev)
-                      & (ssim_loss < 0.5), l1_app, l1_plain)
-    image_loss = (1.0 - opt.lambda_dssim) * Ll1 + \
-        opt.lambda_dssim * ssim_loss
+    with profiling.annotate("objective"):
+        dev = image.device
+        ssim_loss = 1.0 - losses.ssim(image, gt)
+        app_image = renderer.apply_exposure(image, app_ab, cam_uid)
+        l1_plain = losses.l1(image, gt)
+        l1_app = losses.l1(app_image, gt)
+        Ll1 = torch.where(torch.tensor(bool(use_app), device=dev)
+                          & (ssim_loss < 0.5), l1_app, l1_plain)
+        image_loss = (1.0 - opt.lambda_dssim) * Ll1 + \
+            opt.lambda_dssim * ssim_loss
 
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    normal_loss = photo_loss = agg_loss = zero
-    use_agg_now = torch.zeros((), dtype=torch.bool, device=dev)
-    if phase.render_geo:
-        gate_n = float(iteration > opt.single_view_weight_from_iter)
-        normal_loss = gate_n * losses.normal_consistency(
-            rendered_normal, dnormal, opt.single_view_weight)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        normal_loss = photo_loss = agg_loss = zero
+        use_agg_now = torch.zeros((), dtype=torch.bool, device=dev)
+        if phase.render_geo:
+            gate_n = float(iteration > opt.single_view_weight_from_iter)
+            normal_loss = gate_n * losses.normal_consistency(
+                rendered_normal, dnormal, opt.single_view_weight)
 
-        gate_p = float(iteration > opt.multi_view_weight_from_iter)
-        warped = ibr.warped_image[:opt.nb_visible_src_frames]
-        feat = ibr.cam_feat[:opt.nb_visible_src_frames]
-        valid = feat.sum(-1) > 0.0
-        photo_loss = gate_p * losses.multi_view_photometric(
-            gt, warped, valid, opt.photo_ssim_weight, opt.photo_weight)
+            gate_p = float(iteration > opt.multi_view_weight_from_iter)
+            warped = ibr.warped_image[:opt.nb_visible_src_frames]
+            feat = ibr.cam_feat[:opt.nb_visible_src_frames]
+            valid = feat.sum(-1) > 0.0
+            photo_loss = gate_p * losses.multi_view_photometric(
+                gt, warped, valid, opt.photo_ssim_weight, opt.photo_weight)
 
-        if phase.use_aggregation:
-            fusion = aggregation.fuse_color(
-                net, image, ibr.warped_image, ibr.cam_feat, ibr.camera_ray,
-                ibr.min_depth_diff, ibr.use_first_src_mask, burned_in,
-                opt.nb_visible_src_frames, opt.enable_exposure_correction,
-                opt.residual_resolution_scale, opt.enable_mix_precision)
-            pred = fusion["image_pred"]
-            agg_ssim = 1.0 - losses.ssim(pred, gt)
-            agg_l1 = losses.l1(pred, gt)
-            agg_loss = (1.0 - opt.lambda_dssim) * agg_l1 + \
-                opt.lambda_dssim * agg_ssim
-            use_agg_now = fusion["any_valid"]
+            if phase.use_aggregation:
+                fusion = aggregation.fuse_color(
+                    net, image, ibr.warped_image, ibr.cam_feat, ibr.camera_ray,
+                    ibr.min_depth_diff, ibr.use_first_src_mask, burned_in,
+                    opt.nb_visible_src_frames, opt.enable_exposure_correction,
+                    opt.residual_resolution_scale, opt.enable_mix_precision)
+                pred = fusion["image_pred"]
+                agg_ssim = 1.0 - losses.ssim(pred, gt)
+                agg_l1 = losses.l1(pred, gt)
+                agg_loss = (1.0 - opt.lambda_dssim) * agg_l1 + \
+                    opt.lambda_dssim * agg_ssim
+                use_agg_now = fusion["any_valid"]
 
-    total = normal_loss + photo_loss + torch.where(
-        use_agg_now, 0.5 * (image_loss + agg_loss), image_loss)
-    aux = dict(image_loss=image_loss, normal_loss=normal_loss,
-               photo_loss=photo_loss, agg_loss=agg_loss, l1=Ll1,
-               psnr=losses.psnr(torch.clamp(image, 0, 1), gt))
-    return total, aux
+        total = normal_loss + photo_loss + torch.where(
+            use_agg_now, 0.5 * (image_loss + agg_loss), image_loss)
+        aux = dict(image_loss=image_loss, normal_loss=normal_loss,
+                   photo_loss=photo_loss, agg_loss=agg_loss, l1=Ll1,
+                   psnr=losses.psnr(torch.clamp(image, 0, 1), gt))
+        return total, aux
 
 
 @dataclasses.dataclass
@@ -189,9 +191,10 @@ def loss_and_grads(opt: OptimizationParams, rcfg: RasterConfig, net,
         res.ibr, gt, iteration, use_app, burned_in)
     inputs = [*(getattr(leaves, k) for k in PARAM_FIELDS), app_ab,
               *net_params, sdum, sdum_abs]
-    g = torch.autograd.grad(total, inputs, allow_unused=True)
-    g = [torch.zeros_like(x) if gx is None else gx
-         for x, gx in zip(inputs, g)]
+    with profiling.annotate("backward"):
+        g = torch.autograd.grad(total, inputs, allow_unused=True)
+        g = [torch.zeros_like(x) if gx is None else gx
+             for x, gx in zip(inputs, g)]
     nf = len(PARAM_FIELDS)
     grads = Grads(params=GaussianParams(**dict(zip(PARAM_FIELDS, g[:nf]))),
                   app_ab=g[nf], net=g[nf + 1:-2], screen=g[-2],
@@ -217,28 +220,32 @@ def make_train_step(opt: OptimizationParams, rcfg: RasterConfig,
     def step(state: TrainState, cam: Camera, cam_uid: int, gt, src,
              iteration: int, bg, use_app: bool, burned_in: float,
              net_lr: float):
-        total, aux, g = loss_and_grads(
-            opt, rcfg, net, phase, state, cam, cam_uid, gt, src, iteration,
-            bg, use_app, burned_in)
-        aux["loss"] = total
-        # a reverse-only NaN (0·inf through a masked chain) poisons the
-        # moments while every loss stays finite: count it
-        aux["nonfinite_grads"] = sum((~torch.isfinite(x)).sum()
-                                     for x in g.tensors())
+        with profiling.annotate("train_step", iteration):
+            total, aux, g = loss_and_grads(
+                opt, rcfg, net, phase, state, cam, cam_uid, gt, src,
+                iteration, bg, use_app, burned_in)
+            aux["loss"] = total
+            with profiling.annotate("optimizer"):
+                # a reverse-only NaN (0·inf through a masked chain) poisons
+                # the moments while every loss stays finite: count it
+                aux["nonfinite_grads"] = sum((~torch.isfinite(x)).sum()
+                                             for x in g.tensors())
 
-        lrs = lr_tree(lrcfg, iteration, state.spatial_lr_scale)
-        model = adam_step(state.model, g.params, lrs)
-        model = accumulate_stats(model, g.screen, g.screen_abs,
-                                 aux.pop("radii"), cam.width, cam.height)
-        (app_ab,), app_opt = side_adam([state.app_ab], state.app_opt,
-                                       [g.app_ab], lr=1e-3, b2=0.99)
-        net_opt = state.net_opt
-        if phase.use_aggregation:
-            params = list(net.parameters())
-            new, net_opt = side_adam(params, state.net_opt, g.net, lr=net_lr)
-            with torch.no_grad():
-                for p, q in zip(params, new):
-                    p.copy_(q)
+                lrs = lr_tree(lrcfg, iteration, state.spatial_lr_scale)
+                model = adam_step(state.model, g.params, lrs)
+                model = accumulate_stats(model, g.screen, g.screen_abs,
+                                         aux.pop("radii"), cam.width,
+                                         cam.height)
+                (app_ab,), app_opt = side_adam([state.app_ab], state.app_opt,
+                                               [g.app_ab], lr=1e-3, b2=0.99)
+                net_opt = state.net_opt
+                if phase.use_aggregation:
+                    params = list(net.parameters())
+                    new, net_opt = side_adam(params, state.net_opt, g.net,
+                                             lr=net_lr)
+                    with torch.no_grad():
+                        for p, q in zip(params, new):
+                            p.copy_(q)
         return dataclasses.replace(state, model=model, app_ab=app_ab,
                                    app_opt=app_opt, net_opt=net_opt), aux
 

@@ -4,10 +4,23 @@
 card, its kernels) of the code it wraps and writes it as a Chrome trace
 (viewable in Perfetto or chrome://tracing; `scripts/parse_trace.py`
 tabulates it).  The training loop opens it over the `--profile_from_iter`
-/ `--profile_num_steps` window.  `step_annotation` labels one training
-step in that trace, and in an Nsight timeline through NVTX when the
-device is a card; `annotate` labels any host region.  `trace_files` lists
-the captures under a directory.
+/ `--profile_num_steps` window.  `trace_files` lists the captures under a
+directory.
+
+A span (`annotate(name)`) marks one layer of the step or the view in such
+a trace: a `record_function` range named `name`, or `name#ident` for the
+top span of one step or view (`train_step#<iteration>`,
+`render_one#<n>`), whose identifier every span nested in it shares.  The
+port opens them at its layer boundaries: `render`, `projection`,
+`binning`, `blend`, `epilogue`, `net`, `objective`, `backward`,
+`optimizer`, `source_depths`.  Spans are live only while a profiler
+session records (this module's `trace`, the benchmark's traced windows,
+any `torch.profiler.profile`): with none, a span is one read of the
+profiler's flag and a shared null context, under a microsecond; with one,
+it is a `record_function` enter and exit, 10-14 us of host time.
+No option turns them on.  A span's work done by the autograd backward
+runs on another thread with no span open: `parse_trace` charges it to the
+span that ran its forward op (the trace's sequence numbers link the two).
 
 The measurement drivers (`bench.py`, `scripts/kernel_probe.py`,
 `perf_probe.py`, `gsp_tax.py`) time with `wall_ms` (CUDA events on a
@@ -194,20 +207,22 @@ def idle_share(prof: dict, wall_ms: float) -> dict:
     return out
 
 
-@contextlib.contextmanager
-def step_annotation(name: str, step: int, device="cpu"):
-    """Label one training step (`name` #`step`) in the trace timeline."""
-    label = f"{name}#{step}"
-    with contextlib.ExitStack() as stack:
-        stack.enter_context(torch.profiler.record_function(label))
-        if torch.device(device).type == "cuda":
-            stack.enter_context(torch.cuda.nvtx.range(label))
-        yield
+# whether a profiler session records: the C flag behind
+# torch.autograd.profiler._is_profiler_enabled, also set by sessions that
+# do not go through torch.profiler (emit_nvtx, emit_itt)
+_recording = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
 
 
-def annotate(name: str):
-    """Label a host-side region in the trace timeline."""
-    return torch.profiler.record_function(name)
+def annotate(name: str, ident=None):
+    """A span named `name` (`name#ident` with an identifier): a
+    record_function range while a profiler session records, else a shared
+    null context (one flag read; record_function itself is never
+    called)."""
+    if not _recording():
+        return _OFF
+    return torch.profiler.record_function(
+        name if ident is None else f"{name}#{ident}")
 
 
 def trace_files(logdir: str):

@@ -190,13 +190,14 @@ def test_patch_losses_match_jax():
 def test_trace_annotations_and_files(tmp_path):
     d = str(tmp_path / "trace")
     with profiling.trace(d):
-        with profiling.step_annotation("bench_step", 0):
+        with profiling.annotate("bench_step", 0):
             with profiling.annotate("inner"):
                 torch.ones(8).sum()
     files = profiling.trace_files(d)
     assert files, "no trace written"
     with open(files[0]) as f:
-        assert "inner" in f.read()
+        text = f.read()
+    assert "inner" in text and "bench_step#0" in text
     assert profiling.trace_files(str(tmp_path / "none")) == []
     with profiling.trace(None):
         pass

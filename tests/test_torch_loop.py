@@ -350,7 +350,7 @@ def test_profiling_trace_and_depth_colours(tmp_path):
 
     with profiling.trace(str(tmp_path)):
         for it in (1, 2):
-            with profiling.step_annotation("train_step", it, "cpu"):
+            with profiling.annotate("train_step", it):
                 torch.ones(8).sum()
     with open(tmp_path / "trace.json") as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}

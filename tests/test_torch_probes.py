@@ -136,7 +136,17 @@ def test_parse_trace_hand_built(tmp_path, capsys):
                                 "memset": 0.0005}
     assert s["kernels"] == [["blend_fwd_kernel", 0.025, 1],
                             ["elementwise", 0.025, 2]]
-    assert s["labels"] == [["step", 0.105 / 2, 0.5, 1], ["idle", 0.0, 0.2, 1]]
+    # spans over [0, 3400] µs: the memset has no launch (no span); the
+    # gap before it splits at the end of "step"
+    assert s["units"] == 0 and s["span_device_ms"] == pytest.approx(0.053)
+    want = [["(no span)", 0.001, 1.999, 0, 1, 0.0, 0],
+            ["step", 0.105, 0.895, 0, 4, 1.0, 1],
+            ["idle", 0.0, 0.4, 0, 0, 0.4, 1]]
+    assert [r[0] for r in s["spans"]] == [w[0] for w in want]
+    for got, w in zip(s["spans"], want):
+        assert got[3:5] == w[3:5] and got[6] == w[6]
+        assert got[1:3] + [got[5]] == pytest.approx(
+            [x / 2 for x in w[1:3] + [w[5]]], abs=1e-12)
     assert s["sources"] == [
         ["?", 0.056 / 2, 4],
         ["ibgs_tpu_torch/ops/blend.py(210): blend_fwd_cuda", 0.025, 1]]
@@ -192,10 +202,19 @@ def test_parse_trace_reads_a_profiling_trace(tmp_path):
                      1, "render")
     s = parse_trace.summarize(parse_trace.load_events(str(tmp_path)))
     assert s["device_ms"] == 0.0 and s["device_events"] == 0
-    labels = {x[0]: x[1:] for x in s["labels"]}
-    assert set(labels) == {"bench_chain", "bench_step"}
-    assert labels["bench_chain"][1] >= labels["bench_step"][1] > 0
-    assert labels["bench_chain"][2] == labels["bench_step"][2] == 1
+    spans = {x[0]: x[1:] for x in s["spans"]}
+    layers = {"render", "projection", "binning", "blend", "epilogue"}
+    assert set(spans) == {"bench_chain", "bench_step", *layers}
+    # host ms and times opened; each label's idle ms (no device: all of
+    # the window) is the host time no span inside it claims
+    assert spans["bench_chain"][4] >= spans["bench_step"][4] > 0
+    assert spans["bench_chain"][5] == spans["bench_step"][5] == 1
+    # one forward render: each layer once, binning twice (bin_splats and
+    # pack_rows), no backward half
+    assert all(spans[n][5] == 1 for n in layers - {"binning"})
+    assert spans["binning"][5] == 2
+    assert sum(r[1] for r in spans.values()) == pytest.approx(
+        spans["bench_chain"][4], rel=1e-6)
 
 
 def _jax_scaling_rows(sizes):
