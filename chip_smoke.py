@@ -36,19 +36,27 @@ Phases, one JSON line each; any failure makes the exit code 1:
              the float32 plain version's max error against a float64 run
              of it + 1e-7 of the column's largest value, non-finite values
              in the plain version's places, two runs bit-identical
+  binning    the staircase binning kernels (csrc/binning.cu) against the
+             plain version on the bundle at 960x544 and 1920x1088 (also
+             with cap and row_cap cutting the lists) and on the bench's
+             random 1M scene at 960x544: every TileBins field equal
   serve      EvalRenderer.render_one at 960x544 and 1920x1088: finite
              outputs, exactly 5 blend forwards and 5 projections, 1 rgb10
-             pack, 1 warp forward and no backward per view
+             pack, 1 warp forward and no backward per view, each binning
+             kernel 5 times (the radix pass once a digit)
   train      10 IBGS training steps at 960x544 (render_geo + aggregation,
-             iteration 13000), 1 launch of each kernel per step, finite,
+             iteration 13000), 1 launch of each kernel per step (the
+             binning kernels too), finite,
              loss falling; then 1 colour-only step (iteration 5000): 1
              launch of each blend and projection kernel and no pack or
              warp
   timing     kernel / plain / serving / train-step times (CUDA events and
-             host clock; the projection kernels by their profiled device
-             time), each kernel case's share of its bound (the
-             warp forward's also with the pack), the warp and projection
-             kernels' registers, spills and CTAs per SM, the tile range
+             host clock; the projection and binning kernels by their
+             profiled device time), each kernel case's share of its bound
+             (the warp forward's also with the pack), the warp, projection
+             and binning kernels' registers, spills and CTAs per SM, the
+             binning call's device events, host-clock time and plain time
+             at the bundle (1920x1088) and the 1M scene, the tile range
              lengths (p50, p99, max)
              per size, peak memory, device busy share (torch.profiler)
   loop       the training driver (train/loop.train) on the bundle's 5
@@ -202,6 +210,8 @@ PACK_OPS_PER_TEXEL = 12
 PRE_OPS = {"preprocess_fwd": (390, 7), "preprocess_bwd": (970, 16)}
 PRE_SCENE_N = 1_000_000            # the random scene of the bench (1M)
 PRE_PROFILED = 5                   # profiled calls per projection kernel
+BIN_FIELDS = ("order", "rank", "gauss_id", "tile_id", "inst_valid",
+              "tile_start", "tile_stop", "slot", "seg_off")
 MODE_NAMES = {0: "color", 1: "render_geo", 2: "depth_only"}
 FIELDS = ("color", "normal", "final_t", "n_contrib", "buf_depth",
           "buf_weight", "buf_contrib")
@@ -618,6 +628,67 @@ def gate_preprocess(args, cts, tag, failures):
                             f"2x the plain error {ok}, non-finite in the "
                             f"same places {same_nf}")
     return rec, errs
+
+
+def radix_bytes(n, passes, keys_out):
+    """Bytes of a stable radix sort of n 4-byte keys in `passes` passes,
+    each pass's input read once and its output written once: the first
+    pass makes the values (reads no values), the last writes them as
+    int64, and its keys only where `keys_out`."""
+    total = 0
+    for p in range(passes):
+        last = p == passes - 1
+        total += n * (4 + (4 if p else 0) + (4 if keys_out or not last else 0)
+                      + (8 if last else 4))
+    return total
+
+
+def binning_bytes(P, n, num_tiles, tile_passes):
+    """Bytes each binning kernel needs for P Gaussians and n kept
+    instances, each input read once and each output written once (the
+    workspace's words aside): bin_key the depth and tile count in, the key
+    out; bin_radix the depth sort's 4 passes and the tile sort's; bin_count
+    the order, tile count, rectangle and cull row in, seg_off and the kept
+    rows out; bin_emit the same inputs with seg_off and the kept rows in, a
+    tile id and a rank per slot out; bin_ranges the sorted tile ids, the
+    permutation and the slot ranks in, the order entries of the ranks
+    present (at most one per instance), rank, gauss_id, tile_id,
+    inst_valid and the tile starts out."""
+    return {"bin_key": 12 * P,
+            "bin_radix": (radix_bytes(P, 4, False)
+                          + radix_bytes(n, tile_passes, True)),
+            "bin_count": 64 * P + 8, "bin_emit": 64 * P + 8 * n,
+            "bin_ranges": 41 * n + 8 * min(P, n) + 4 * (num_tiles + 1)}
+
+
+def binning_inputs(sp):
+    """(sp, cull table) of a Splats2D as `prepare` bins it."""
+    from ibgs_tpu_torch.ops.rasterize import cull_table
+    return sp, cull_table(sp)
+
+
+def gate_binning(sp, cull, grid, caps, tag, failures):
+    """The binning kernels against the plain version on one input: every
+    TileBins field and both totals equal.  `grid` = (tiles_x, tiles_y,
+    tile_h, tile_w), `caps` = (cap, row_cap)."""
+    import torch
+    from ibgs_tpu_torch.ops import binning
+    TX, TY, TH, TW = grid
+    k = binning.bin_staircase_cuda(sp, TX, TY, caps[0], cull, TH, TW,
+                                   caps[1])
+    p = binning.bin_staircase_plain(sp, TX, TY, caps[0], cull, TH, TW,
+                                    caps[1])
+    differing = [f for f in BIN_FIELDS
+                 if getattr(k, f).dtype != getattr(p, f).dtype
+                 or not torch.equal(getattr(k, f), getattr(p, f))]
+    differing += [f for f in ("n_instances", "n_rows")
+                  if getattr(k, f) != getattr(p, f)]
+    if differing:
+        failures.append(f"binning {tag}: {differing} differ from the plain "
+                        f"version")
+    return {"splats": sp.depth.shape[0], "cap": caps[0], "row_cap": caps[1],
+            "n_instances": p.n_instances, "n_rows": p.n_rows,
+            "kept": p.rank.shape[0], "differing": differing}
 
 
 def preprocess_bytes(args, cts=None):
@@ -1500,15 +1571,15 @@ def parallel_phase(d, dev, scenes, inputs, opt, rcfg, failures):
 
 @contextlib.contextmanager
 def plain_blend():
-    """Route every kernel wrapper (blend, warp, projection) to its plain
-    version on the card, so a driver runs its plain path on the same
+    """Route every kernel wrapper (blend, warp, projection, binning) to its
+    plain version on the card, so a run takes its plain path on the same
     device and inputs."""
-    from ibgs_tpu_torch.ops import blend, epilogue
+    from ibgs_tpu_torch.ops import binning, blend, epilogue
     from ibgs_tpu_torch.ops import preprocess as pre
     kernels = (blend.blend_fwd_cuda, blend.blend_bwd_cuda,
                epilogue.rgb10_pack_cuda, epilogue.warp_fwd_cuda,
                epilogue.warp_bwd_cuda, pre.preprocess_fwd_cuda,
-               pre.preprocess_bwd_cuda)
+               pre.preprocess_bwd_cuda, binning.bin_staircase_cuda)
     blend.blend_fwd_cuda, blend.blend_bwd_cuda = (blend.blend_plain,
                                                   blend.blend_bwd_plain)
     epilogue.rgb10_pack_cuda = epilogue.pack_rgb10_rows
@@ -1516,13 +1587,14 @@ def plain_blend():
     epilogue.warp_bwd_cuda = epilogue.warp_views_bwd_plain
     pre.preprocess_fwd_cuda = pre.preprocess_fwd_plain
     pre.preprocess_bwd_cuda = pre.preprocess_bwd_plain
+    binning.bin_staircase_cuda = binning.bin_staircase_plain
     try:
         yield
     finally:
         (blend.blend_fwd_cuda, blend.blend_bwd_cuda,
          epilogue.rgb10_pack_cuda, epilogue.warp_fwd_cuda,
          epilogue.warp_bwd_cuda, pre.preprocess_fwd_cuda,
-         pre.preprocess_bwd_cuda) = kernels
+         pre.preprocess_bwd_cuda, binning.bin_staircase_cuda) = kernels
 
 
 @contextlib.contextmanager
@@ -2286,6 +2358,36 @@ def main():
     rec["max_abs_err"] = pre_max_abs_err
     emit(rec)
 
+    # ---- binning: the staircase binning kernels vs plain -------------------
+    # the bundle at both sizes as `prepare` bins it (and at 1920x1088 with
+    # row_cap at half the rows and cap at a quarter of the instances) and
+    # the random 1M scene
+    from ibgs_tpu_torch.ops import preprocess as pre
+    with torch.no_grad():
+        sp_1m = pre.preprocess(*preprocess_args(
+            scene_1m[0], scene_1m[1], opt.learnt_normal, rcfg.tile_h,
+            rcfg.tile_w))
+    bin_in = {f"bundle_{w}x{h}": (binning_inputs(preps[(w, h)].sp),
+                                  (preps[(w, h)].Wp // rcfg.tile_w,
+                                   preps[(w, h)].Hp // rcfg.tile_h,
+                                   rcfg.tile_h, rcfg.tile_w))
+              for w, h in SIZES}
+    bin_in[f"random_1m_{SIZES[0][0]}x{SIZES[0][1]}"] = (
+        binning_inputs(sp_1m), (-(-SIZES[0][0] // rcfg.tile_w),
+                                -(-SIZES[0][1] // rcfg.tile_h), rcfg.tile_h,
+                                rcfg.tile_w))
+    rec = {"phase": "binning", "cases": {}}
+    for tag, ((sp, cull), grid) in bin_in.items():
+        rec["cases"][tag] = gate_binning(sp, cull, grid, (0, 0), tag,
+                                         failures)
+    tag = f"bundle_{SIZES[1][0]}x{SIZES[1][1]}"
+    free = rec["cases"][tag]
+    caps = (free["n_instances"] // 4 + 1, free["n_rows"] // 2 + 1)
+    rec["cases"][tag + "_caps"] = gate_binning(*bin_in[tag][0],
+                                               bin_in[tag][1], caps,
+                                               tag + "_caps", failures)
+    emit(rec)
+
     # ---- serve: the serving path, counted ----------------------------------
     net = init_fusion_net(ColorFusionResidualNet(
         32, opt.feat_aggregate_mode), torch.Generator().manual_seed(0))
@@ -2293,13 +2395,26 @@ def main():
         sc["model"], net, sc["images"], sc["w2v"], sc["centers"],
         sc["train_cameras"], opt, rcfg, device=dev)
         for wh, sc in scenes.items()}
-    outs, per_view = {}, {}
+    from ibgs_tpu_torch.ops import binning
+
+    def bin_launches(renders, wh):
+        """The binning kernels' launches for `renders` staircase renders
+        at wh: each kernel once a render, bin_radix once a sort pass (4
+        for the depth order, 1-4 for the tile ids)."""
+        tiles = (-(-wh[0] // rcfg.tile_w)) * (-(-wh[1] // rcfg.tile_h))
+        n = renders * int(rcfg.staircase_cull)
+        return {"bin_key": n, "bin_count": n, "bin_emit": n,
+                "bin_ranges": n,
+                "bin_radix": n * (4 + _cuda.bin_tile_passes(tiles))}
+    outs, per_view, bin_view = {}, {}, {}
     reset_launch_counts()
     for wh in SIZES:
-        before = launch_counts()
+        before, bin_before = launch_counts(), dict(binning.LAUNCHES)
         outs[wh] = renderers[wh].render_one(scenes[wh]["cam"], nearest)
         torch.cuda.synchronize()
         per_view[wh] = launches_since(before)
+        bin_view[wh] = {k: binning.LAUNCHES[k] - bin_before[k]
+                        for k in bin_before}
     serve_launches = launch_counts()
     for wh in SIZES:
         sc, out = scenes[wh], outs[wh]
@@ -2311,6 +2426,9 @@ def main():
         if per_view[wh] != kernel_launches(5, 0, 1, 0):
             failures.append(f"serve {wh}: kernel launches {per_view[wh]}, "
                             f"expected {kernel_launches(5, 0, 1, 0)}")
+        if bin_view[wh] != bin_launches(5, wh):
+            failures.append(f"serve {wh}: binning launches {bin_view[wh]}, "
+                            f"expected {bin_launches(5, wh)}")
 
         def psnr(img):
             mse = float(((img.clamp(0, 1) - sc["gt"]) ** 2).mean())
@@ -2326,6 +2444,7 @@ def main():
             agree.append(float(ok.sum()) / max(int(has.sum()), 1))
         emit({"phase": "serve", "size": f"{wh[0]}x{wh[1]}",
               "finite": finite, "kernel_launches": per_view[wh],
+              "binning_launches": bin_view[wh],
               "n_instances": out["n_instances"], "n_rows": out["n_rows"],
               "psnr_render": round(psnr(out["render"]), 4),
               "psnr_aggregate": round(psnr(out["aggregate"]), 4),
@@ -2339,10 +2458,15 @@ def main():
              for mode in (1, 0)}
 
     def run_step(state, mode):
-        before = launch_counts()
+        before, bin_before = launch_counts(), dict(binning.LAUNCHES)
         state, aux = steps[mode](state, sc["cam"], 0, sc["gt"], src,
                                  iters[mode], bg, False, 1.0, NET_LR)
         torch.cuda.synchronize()
+        bin_step = {k: binning.LAUNCHES[k] - bin_before[k]
+                    for k in bin_before}
+        if bin_step != bin_launches(1, wh):
+            failures.append(f"train {MODE_NAMES[mode]}: binning launches "
+                            f"{bin_step}, expected {bin_launches(1, wh)}")
         row = {k: float(aux[k]) for k in TRAIN_AUX}
         row.update(nonfinite_grads=int(aux["nonfinite_grads"]),
                    n_instances=aux["n_instances"], n_rows=aux["n_rows"],
@@ -2536,6 +2660,53 @@ def main():
                 "bytes": nbytes, "ops": ops,
                 **_cuda.preprocess_info(name, K)})
 
+    # the binning kernels at the bundle (1920x1088) and the 1M scene
+    # (960x544): each kernel's device time from profiled calls of the
+    # whole wrapper (by kernel name; bin_radix all its passes), the rest
+    # of its device events (the workspace's memset, the totals' copy) as
+    # other_ms, the call on the host clock (it ends in its one sync) and
+    # the plain version's
+    bin_cases = []
+    for tag in (f"bundle_{SIZES[1][0]}x{SIZES[1][1]}",
+                f"random_1m_{SIZES[0][0]}x{SIZES[0][1]}"):
+        (sp, cull), (TX, TY, TH, TW) = bin_in[tag]
+        P = sp.depth.shape[0]
+
+        def kernel():
+            return binning.bin_staircase_cuda(sp, TX, TY, 0, cull, TH, TW,
+                                              0)
+
+        def plain():
+            return binning.bin_staircase_plain(sp, TX, TY, 0, cull, TH,
+                                               TW, 0)
+        n = kernel().rank.shape[0]
+        runs = [profiling.device_time(kernel, DEVICE, top=64)
+                for _ in range(PRE_PROFILED)]
+        if any("error" in r for r in runs):
+            failures.append(f"timing binning {tag}: {runs}")
+            continue
+        mine = {k: sorted(sum(t[1] for t in r["top"] if f"{k}_kernel" in t[0])
+                          for r in runs)[len(runs) // 2]
+                for k in _cuda.BIN_KERNELS}
+        other = sorted(r["device_busy_ms"] - sum(
+            t[1] for t in r["top"] if "bin_" in t[0] and "_kernel" in t[0])
+            for r in runs)[len(runs) // 2]
+        call = median_range([host_ms(kernel) for _ in range(PRE_PROFILED)])
+        plain_ms = median_range([host_ms(plain) for _ in range(3)])
+        nbytes = binning_bytes(P, n, TX * TY, _cuda.bin_tile_passes(TX * TY))
+        for k in _cuda.BIN_KERNELS:
+            bound = nbytes[k] / HBM_BYTES_S * 1e3
+            bin_cases.append({
+                "kernel": k, "scene": tag, "splats": P, "instances": n,
+                "ms": mine[k], "bound_ms": bound, "bytes": nbytes[k],
+                "bound_share": bound / mine[k] if mine[k] else math.nan,
+                "bound_by": "bytes", **_cuda.binning_info(k)})
+        bin_cases.append({
+            "kernel": "bin_splats", "scene": tag, "splats": P,
+            "instances": n, "device_launches": runs[0]["device_launches"],
+            "kernels_ms": sum(mine.values()), "other_ms": other,
+            "call_ms": call, "plain_ms": plain_ms})
+
     serve_ms = {}
     for wh in SIZES:
         sc = scenes[wh]
@@ -2590,12 +2761,14 @@ def main():
                                       f"timing train {wh}", failures)}
     emit({"phase": "timing", "blend_fwd": fwd_cases, "blend_bwd": bwd_cases,
           "warp": warp_cases, "preprocess": pre_cases,
+          "binning": bin_cases,
           "tile_ranges": {f"{wh[0]}x{wh[1]}": range_lengths(preps[wh])
                           for wh in SIZES},
           "serve": serve_ms, "train_step": train_ms})
 
     # ---- loop: the training driver from the seed cloud, counted ------------
     del renderers, train_in, bwd_args, warp_in, pre_in, scene_1m, preps, outs
+    del bin_in, sp_1m, sp, cull
     del state
     torch.cuda.empty_cache()
     rec, loop_launches, resume_launches = loop_phase(d, dev, failures)

@@ -24,7 +24,8 @@ BUILD_DIR = _PKG.parent / "build" / "ibgs_tpu_torch"
 SOURCES = {"blend_fwd": CSRC / "blend_fwd.cu",
            "blend_bwd": CSRC / "blend_bwd.cu",
            "warp": CSRC / "warp.cu",
-           "preprocess": CSRC / "preprocess.cu"}
+           "preprocess": CSRC / "preprocess.cu",
+           "binning": CSRC / "binning.cu"}
 HEADERS = (CSRC / "blend_common.cuh",)
 # --fmad=false: no multiply-add contraction, so float ops round one by one
 # as the plain PyTorch versions' ops do (see the notes in the sources).
@@ -77,6 +78,28 @@ _SIGNATURES = {
                             + [ctypes.POINTER(_c_ptr), ctypes.POINTER(_c_ll)]
                             + [_c_ptr] * 7, _c_int),
     "ibgs_preprocess_info": ([_c_int] * 2 + [ctypes.POINTER(_c_int)], _c_int),
+    # depth, n_tiles, P, workspace, keys a, b, values a, b, order, stream
+    "ibgs_bin_order": ([_c_ptr, _c_ptr, _c_ll] + [_c_ptr] * 7, _c_int),
+    # order, n_tiles, rect_min, rect_max, cull, P, tiles_x, tiles_y,
+    # tile_h, tile_w, row_cap, workspace, seg_off, kept, the stream
+    "ibgs_bin_count": ([_c_ptr] * 5 + [_c_ll] + [_c_int] * 4 + [_c_ll]
+                       + [_c_ptr] * 4, _c_int),
+    # order, n_tiles, rect_min, rect_max, cull, P, tiles_x, tiles_y,
+    # tile_h, tile_w, seg_off, kept, n, tile, rank, workspace, the tile
+    # sort's state, the stream
+    "ibgs_bin_emit": ([_c_ptr] * 5 + [_c_ll] + [_c_int] * 4 + [_c_ptr] * 2
+                      + [_c_ll] + [_c_ptr] * 5, _c_int),
+    # n, num_tiles, P, workspace, state, keys a, b, values a, b,
+    # tile_sorted, slot, the stream
+    "ibgs_bin_tiles": ([_c_ll, _c_int, _c_ll] + [_c_ptr] * 9, _c_int),
+    # tile_sorted, perm, slot_rank, order, n, num_tiles, rank, gauss_id,
+    # tile_id, valid, start, the stream
+    "ibgs_bin_ranges": ([_c_ptr] * 4 + [_c_ll, _c_int] + [_c_ptr] * 6,
+                        _c_int),
+    "ibgs_bin_workspace_words": ([_c_ll], _c_ll),
+    "ibgs_bin_tile_passes": ([_c_int], _c_int),
+    "ibgs_bin_tile_state_words": ([_c_ll, _c_int], _c_ll),
+    "ibgs_binning_info": ([_c_int, ctypes.POINTER(_c_int)], _c_int),
     "ibgs_cuda_error_string": ([_c_int], ctypes.c_char_p),
 }
 
@@ -306,6 +329,98 @@ def preprocess_info(kernel: str, K: int) -> dict:
     out = (_c_int * 4)()
     which = ("preprocess_fwd", "preprocess_bwd").index(kernel)
     err = load("preprocess").ibgs_preprocess_info(which, K, out)
+    if err != 0:
+        raise RuntimeError(f"{kernel} attribute query failed: "
+                           f"{error_string(err)} ({err})")
+    return dict(zip(("registers", "local_bytes", "ctas_per_sm", "threads"),
+                    out))
+
+
+
+BIN_KERNELS = ("bin_key", "bin_radix", "bin_count", "bin_emit", "bin_ranges")
+
+
+def bin_workspace_words(P: int) -> int:
+    """64-bit words of the binning workspace for P Gaussians."""
+    return load("binning").ibgs_bin_workspace_words(P)
+
+
+def bin_tile_passes(num_tiles: int) -> int:
+    """Radix passes of the tile sort on a grid of num_tiles tiles."""
+    return load("binning").ibgs_bin_tile_passes(num_tiles)
+
+
+def bin_tile_state_words(n: int, num_tiles: int) -> int:
+    """64-bit words of the tile sort's state for n instances."""
+    return load("binning").ibgs_bin_tile_state_words(n, num_tiles)
+
+
+def bin_order(depth, n_tiles, ws, scratch, order, stream) -> int:
+    """Launch ibgs_bin_order: depth (P,) float32, n_tiles (P,) int32, ws
+    the zeroed workspace → bin_key and the depth sort's passes, order (P,)
+    int64; `scratch` = keys a, b and values a, b, (P,) int32 each.
+    Returns the CUDA error code of the launches (0 = success)."""
+    return load("binning").ibgs_bin_order(
+        depth.data_ptr(), n_tiles.data_ptr(), depth.shape[0], ws.data_ptr(),
+        *(t.data_ptr() for t in scratch), order.data_ptr(), stream)
+
+
+def bin_count(order, sp, cull_tab, grid, row_cap, ws, seg_off, kept,
+              stream) -> int:
+    """Launch ibgs_bin_count: the depth order (P,) int64, the Splats2D
+    `sp`'s n_tiles, rect_min, rect_max (int32, contiguous), cull_tab (P,
+    6) float32, `grid` = (tiles_x, tiles_y, tile_h, tile_w) → seg_off (P +
+    1,) int64, kept rows (P,) int32, and ws[0:3] = rows, instances, the
+    out-of-grid flag.  Returns the CUDA error code of the launch."""
+    return load("binning").ibgs_bin_count(
+        order.data_ptr(), sp.n_tiles.data_ptr(), sp.rect_min.data_ptr(),
+        sp.rect_max.data_ptr(), cull_tab.data_ptr(), order.shape[0], *grid,
+        row_cap, ws.data_ptr(), seg_off.data_ptr(), kept.data_ptr(), stream)
+
+
+def bin_emit(order, sp, cull_tab, grid, seg_off, kept, tile, rank, ws,
+             state, stream) -> int:
+    """Launch ibgs_bin_emit: bin_count's inputs and outputs → the n =
+    len(tile) kept slots' tile ids and depth ranks, (n,) int32 each, and
+    their digit counts in ws; zeroes `state` (the tile sort's).  Returns
+    the CUDA error code of the launch."""
+    return load("binning").ibgs_bin_emit(
+        order.data_ptr(), sp.n_tiles.data_ptr(), sp.rect_min.data_ptr(),
+        sp.rect_max.data_ptr(), cull_tab.data_ptr(), order.shape[0], *grid,
+        seg_off.data_ptr(), kept.data_ptr(), tile.shape[0], tile.data_ptr(),
+        rank.data_ptr(), ws.data_ptr(), state.data_ptr(), stream)
+
+
+def bin_tiles(tile, num_tiles, P, ws, state, scratch, tile_sorted, slot,
+              stream) -> int:
+    """Launch ibgs_bin_tiles, the tile sort's passes: bin_emit's (n,) tile
+    ids → tile_sorted (n,) int32 and slot (n,) int64; `scratch` = keys b,
+    values a, b, (n,) int32 each.  Returns the CUDA error code of the
+    launches."""
+    return load("binning").ibgs_bin_tiles(
+        tile.shape[0], num_tiles, P, ws.data_ptr(), state.data_ptr(),
+        tile.data_ptr(), *(t.data_ptr() for t in scratch),
+        tile_sorted.data_ptr(), slot.data_ptr(), stream)
+
+
+def bin_ranges(tile_sorted, perm, slot_rank, order, num_tiles, outs,
+               stream) -> int:
+    """Launch ibgs_bin_ranges: the tile sort's (n,) keys and int64
+    permutation, bin_emit's ranks, the depth order → `outs` = rank,
+    gauss_id, tile_id (n,) int64, inst_valid (n,) bool, start (num_tiles +
+    1,) int32.  Returns the CUDA error code of the launch."""
+    return load("binning").ibgs_bin_ranges(
+        tile_sorted.data_ptr(), perm.data_ptr(), slot_rank.data_ptr(),
+        order.data_ptr(), tile_sorted.shape[0], num_tiles,
+        *(t.data_ptr() for t in outs), stream)
+
+
+def binning_info(kernel: str) -> dict:
+    """Registers, local (spill) bytes per thread, CTAs one SM holds at once
+    and threads per CTA of the binning kernel `kernel` (a BIN_KERNELS
+    name; bin_radix as its intermediate passes build)."""
+    out = (_c_int * 4)()
+    err = load("binning").ibgs_binning_info(BIN_KERNELS.index(kernel), out)
     if err != 0:
         raise RuntimeError(f"{kernel} attribute query failed: "
                            f"{error_string(err)} ({err})")

@@ -14,6 +14,15 @@ slots already in depth order.  `tile_start` / `tile_stop` are the per-tile
 [start, stop) ranges that the blend reads.  The slots of one Gaussian are
 contiguous before the sort ([seg_off[r], seg_off[r+1]) for depth rank r),
 which `pack_rows`' backward turns into deterministic segment sums.
+
+The staircase path has two versions of one algorithm, chosen by the
+tensors' device alone: on CPU tensors the plain torch version
+(`bin_staircase_plain`), on CUDA tensors the hand-written kernels
+of csrc/binning.cu (`bin_staircase_cuda`, counted in LAUNCHES), bit for
+bit the same TileBins in 12 device events and one host read a render
+(their own radix sorts in place of the plain version's `torch.sort`s).
+There is no fallback: a CUDA input the kernels do not take raises.  The
+AABB path and `pack_rows` are torch code on both devices.
 """
 from __future__ import annotations
 
@@ -24,6 +33,12 @@ import torch
 
 from ibgs_tpu_torch.ops.preprocess import Splats2D, to_i32
 from ibgs_tpu_torch.utils import profiling
+
+# kernel launches (counted by the wrapper where it launches; bin_radix
+# once a sort pass: 4 for the depth order, 1-4 for the tile ids)
+LAUNCHES = {"bin_key": 0, "bin_radix": 0, "bin_count": 0, "bin_emit": 0,
+            "bin_ranges": 0}
+_I32_MAX = 2 ** 31 - 1
 
 
 @dataclasses.dataclass
@@ -121,9 +136,9 @@ def _staircase_row_interval(ca, cb, cc, thr, v_lo, v_hi, tile_w, mx, rx, rw):
     return lo, w
 
 
-def _bin_splats_staircase(sp: Splats2D, tiles_x: int, tiles_y: int,
-                          cap: int, cull_tab: torch.Tensor, tile_h: int,
-                          tile_w: int, row_cap: int) -> TileBins:
+def bin_staircase_plain(sp: Splats2D, tiles_x: int, tiles_y: int, cap: int,
+                        cull_tab: torch.Tensor, tile_h: int, tile_w: int,
+                        row_cap: int) -> TileBins:
     """Two-level expansion: gaussians → tile rows → kept tiles.  Each row's
     kept-tile interval is computed before slot assignment, so culled tiles
     never take a slot.  Enumeration order (row-major within each
@@ -161,6 +176,126 @@ def _bin_splats_staircase(sp: Splats2D, tiles_x: int, tiles_y: int,
     seg_off = offs2_ext[torch.clamp(first_row, 0, rrank.shape[0])]
     return _finish(tile, rrank[rowrank], order, num_tiles, inst.shape[0],
                    total, seg_off, n_rows=total_rows)
+
+
+def _check_cuda(sp: Splats2D, cull_tab: torch.Tensor, tiles_x: int,
+                tiles_y: int, tile_h: int, tile_w: int, cap: int,
+                row_cap: int):
+    """Raise ValueError on what the binning kernels do not take: a tensor
+    of the wrong dtype or shape or not contiguous, a grid, tile size or cap
+    out of range, or (checked last) a tensor off the CUDA device of
+    `sp.depth`."""
+    P = sp.depth.shape[0]
+    tensors = (("depth", sp.depth, torch.float32, (P,)),
+               ("n_tiles", sp.n_tiles, torch.int32, (P,)),
+               ("rect_min", sp.rect_min, torch.int32, (P, 2)),
+               ("rect_max", sp.rect_max, torch.int32, (P, 2)),
+               ("cull_tab", cull_tab, torch.float32, (P, 6)))
+    for name, t, dtype, shape in tensors:
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"bin_splats: {name} must be {dtype} {shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"bin_splats: {name} must be contiguous")
+    if min(tiles_x, tiles_y, tile_h, tile_w) < 1 or \
+            tiles_x * tiles_y >= _I32_MAX or P >= _I32_MAX:
+        raise ValueError(f"bin_splats: the kernels take a grid of 1 to "
+                         f"2^31 - 2 tiles of at least 1x1 pixels and fewer "
+                         f"than 2^31 - 1 splats, got {tiles_x}x{tiles_y} "
+                         f"tiles of {tile_h}x{tile_w}, {P} splats")
+    if cap < 0 or row_cap < 0:
+        raise ValueError(f"bin_splats: cap and row_cap must be >= 0 (0 = no "
+                         f"cap), got {cap} and {row_cap}")
+    dev = sp.depth.device
+    for _, t, _, _ in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"bin_splats: the kernels take tensors on one "
+                             f"CUDA device, got {t.device} and {dev}")
+
+
+def _launched(err, **counts):
+    """Raise on a failed launch, else count the launches in LAUNCHES."""
+    from ibgs_tpu_torch.ops import _cuda
+    if err != 0:
+        raise RuntimeError(f"{' / '.join(counts)} kernel launch failed: "
+                           f"{_cuda.error_string(err)} ({err})")
+    for name, k in counts.items():
+        LAUNCHES[name] += k
+
+
+def bin_staircase_cuda(sp: Splats2D, tiles_x: int, tiles_y: int, cap: int,
+                       cull_tab: torch.Tensor, tile_h: int, tile_w: int,
+                       row_cap: int) -> TileBins:
+    """`bin_staircase_plain` (same arguments and TileBins, bit for bit) as
+    the kernels of csrc/binning.cu on the current stream: a zeroed
+    workspace, bin_key and the depth sort's 4 radix passes, bin_count
+    (both offsets, the totals), one host read of the totals (the one sync,
+    which sizes the lists), bin_emit, the tile sort's passes and
+    bin_ranges.  Raises ValueError where a rectangle with rows lies outside
+    the grid (the projection's never do; their tile ids would not sort)."""
+    from ibgs_tpu_torch.ops import _cuda
+
+    _check_cuda(sp, cull_tab, tiles_x, tiles_y, tile_h, tile_w, cap,
+                row_cap)
+    dev = sp.depth.device
+    P = sp.depth.shape[0]
+    num_tiles = tiles_x * tiles_y
+    grid = (tiles_x, tiles_y, tile_h, tile_w)
+    i32, i64 = torch.int32, torch.int64
+
+    def ints(k, m):
+        return [torch.empty(k, dtype=i32, device=dev) for _ in range(m)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ws = torch.zeros(_cuda.bin_workspace_words(P), dtype=i64, device=dev)
+        order = torch.empty(P, dtype=i64, device=dev)
+        _launched(_cuda.bin_order(sp.depth, sp.n_tiles, ws, ints(P, 4),
+                                  order, stream), bin_key=1, bin_radix=4)
+        seg_off = torch.empty(P + 1, dtype=i64, device=dev)
+        kept = torch.empty(P, dtype=i32, device=dev)
+        _launched(_cuda.bin_count(order, sp, cull_tab, grid, row_cap, ws,
+                                  seg_off, kept, stream), bin_count=1)
+        n_rows, total, outside = ws[:3].tolist()
+        if outside:
+            raise ValueError(f"bin_splats: a tile rectangle with rows lies "
+                             f"outside the {tiles_x}x{tiles_y} grid")
+        n = min(total, cap) if cap else total
+        if n >= _I32_MAX:
+            raise ValueError(f"bin_splats: {n} instances, the kernels take "
+                             f"fewer than 2^31 - 1")
+        state = torch.empty(_cuda.bin_tile_state_words(n, num_tiles),
+                            dtype=i64, device=dev)
+        tile, slot_rank, tile_sorted, *tile_scratch = ints(n, 6)
+        _launched(_cuda.bin_emit(order, sp, cull_tab, grid, seg_off, kept,
+                                 tile, slot_rank, ws, state, stream),
+                  bin_emit=1)
+        perm = torch.empty(n, dtype=i64, device=dev)
+        _launched(_cuda.bin_tiles(tile, num_tiles, P, ws, state,
+                                  tile_scratch, tile_sorted, perm, stream),
+                  bin_radix=_cuda.bin_tile_passes(num_tiles))
+        outs = (torch.empty(n, dtype=i64, device=dev),
+                torch.empty(n, dtype=i64, device=dev),
+                torch.empty(n, dtype=i64, device=dev),
+                torch.empty(n, dtype=torch.bool, device=dev),
+                torch.empty(num_tiles + 1, dtype=i32, device=dev))
+        _launched(_cuda.bin_ranges(tile_sorted, perm, slot_rank, order,
+                                   num_tiles, outs, stream), bin_ranges=1)
+    rank, gauss_id, tile_id, inst_valid, start = outs
+    return TileBins(
+        order=order, rank=rank, gauss_id=gauss_id, tile_id=tile_id,
+        inst_valid=inst_valid, tile_start=start[:num_tiles],
+        tile_stop=start[1:], n_instances=total, slot=perm, seg_off=seg_off,
+        n_rows=n_rows)
+
+
+def _bin_splats_staircase(sp: Splats2D, tiles_x: int, tiles_y: int,
+                          cap: int, cull_tab: torch.Tensor, tile_h: int,
+                          tile_w: int, row_cap: int) -> TileBins:
+    """The staircase expansion: the plain version on CPU tensors, the
+    kernels on CUDA tensors (which raise on what they do not take)."""
+    fn = (bin_staircase_plain if sp.depth.device.type == "cpu"
+          else bin_staircase_cuda)
+    return fn(sp, tiles_x, tiles_y, cap, cull_tab, tile_h, tile_w, row_cap)
 
 
 def bin_splats(sp: Splats2D, tiles_x: int, tiles_y: int, cap: int = 0,

@@ -40,6 +40,17 @@ equal, its float fields at the forward tolerance; the backward, per
 column, within 2x the float32 plain version's error against a float64 run
 of it + 1e-7 of the column's largest value, non-finite values in the
 plain version's places, repeats bit-identical.
+
+The staircase binning kernels (csrc/binning.cu, `-k bin`) are held to the
+plain version bit for bit on every TileBins field, and on pack_rows'
+forward and backward through both: on the seeded cases of
+tests/torch_binning_cases.py (caps cutting inside a Gaussian, a band-local
+grid, no visible splat, one splat, splats clipping every edge, degenerate
+conics, NaN / inf in the cull table, long runs of equal depths and of
+equal tiles) and on the bundle at 1920x1088, full frame and a band at row
+544, without and with caps (12 device events a call there); one
+`bin_splats` launches each kernel once (the radix pass once per digit)
+and makes one blocking host read.
 """
 import dataclasses
 import zlib
@@ -51,6 +62,7 @@ import torch
 from ibgs_tpu_torch.ops import blend, epilogue
 from ibgs_tpu_torch.ops import preprocess as pre
 from ibgs_tpu_torch.ops.blend_common import BlendConfig
+import torch_binning_cases as bcases
 import torch_preprocess_cases as pcases
 
 FIELDS = ("color", "normal", "final_t", "n_contrib", "buf_depth",
@@ -1260,3 +1272,171 @@ def test_profiler_sessions_keep_every_launch(tmp_path):
             got, lost = profiling.device_events(
                 json.load(f)["traceEvents"])
         assert (len(got), lost) == (8, [])
+
+
+# ------------------------------------------------------ staircase binning
+
+BIN_FIELDS = ("order", "rank", "gauss_id", "tile_id", "inst_valid",
+              "tile_start", "tile_stop", "slot", "seg_off")
+
+
+def _assert_bins_equal(k, p):
+    """Every TileBins field of the kernels equal to the plain version's,
+    dtype and shape included, and the two totals."""
+    for f in BIN_FIELDS:
+        a, b = getattr(k, f), getattr(p, f)
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        assert torch.equal(a, b), f
+    assert (k.n_instances, k.n_rows) == (p.n_instances, p.n_rows)
+
+
+def _assert_pack_rows_equal(k, p, P, dev, seed=0):
+    """pack_rows through both TileBins: forward and backward bit for
+    bit."""
+    from ibgs_tpu_torch.ops import binning
+    g = torch.Generator(device=dev).manual_seed(seed)
+    feats = torch.randn(P, 16, device=dev, generator=g)
+    ct = torch.randn(k.rank.shape[0], 16, device=dev, generator=g)
+    outs = []
+    for bins in (k, p):
+        f = feats.clone().requires_grad_(True)
+        out = binning.pack_rows(f, bins)
+        (grad,) = torch.autograd.grad((out * ct).sum(), f)
+        outs.append((out.detach(), grad))
+    assert _same_bits(outs[0][0], outs[1][0])
+    assert _same_bits(outs[0][1], outs[1][1])
+
+
+def _bins_both(sp, cull, grid, cap=0, row_cap=0):
+    from ibgs_tpu_torch.ops import binning
+    TX, TY, TH, TW = grid
+    k = binning.bin_staircase_cuda(sp, TX, TY, cap, cull, TH, TW, row_cap)
+    p = binning.bin_staircase_plain(sp, TX, TY, cap, cull, TH, TW, row_cap)
+    return k, p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", bcases.CASES)
+def test_binning_kernels_match_plain(case):
+    """The staircase kernels (csrc/binning.cu) against the plain version on
+    the seeded cases of tests/torch_binning_cases.py: every TileBins field
+    bit for bit, pack_rows' forward and backward through both, repeats
+    bit-identical."""
+    dev = _cuda()
+    sp, cull, *grid = bcases.scene(case, device=dev)
+    cap = row_cap = 0
+    if case == "caps":
+        cap, row_cap = bcases.caps_inside(
+            lambda c, rc: _bins_both(sp, cull, grid, c, rc)[1], sp, cull,
+            *grid)
+    k, p = _bins_both(sp, cull, grid, cap, row_cap)
+    _assert_bins_equal(k, p)
+    _assert_bins_equal(_bins_both(sp, cull, grid, cap, row_cap)[0], k)
+    _assert_pack_rows_equal(k, p, sp.depth.shape[0], dev)
+
+
+def _bundle_splats(dev, band=None):
+    """The bundle's splats at 1920x1088 as `prepare` bins them (16x32
+    tiles), on the full frame or on the band-local grid of image rows
+    [row0, row0 + rows) for band = (row0, rows)."""
+    from pathlib import Path
+
+    from ibgs_tpu_torch import convert
+    from ibgs_tpu_torch.ops import rasterize as ras
+    d = dict(np.load(Path(__file__).resolve().parent.parent
+                     / "bench_bundle.npz"))
+    sc = convert.bundle_scene(d, 1920, 1088, dev)
+    m, cam = sc["model"], sc["cam"]
+    nw, off = m.oriented_normal(cam.cam_pos)
+    TH, TW = 16, 32
+    with torch.no_grad():
+        sp = pre.preprocess(m.params.xyz, m.scale, m.quat_unit, m.opacity,
+                            m.sh_coeffs, m.active_sh_degree, nw, off, cam,
+                            TH, TW, alive=m.alive)
+    TX, TY, row0 = 1920 // TW, 1088 // TH, 0
+    if band is not None:
+        row0, rows = band
+        TY = rows // TH
+        sp = ras._band(sp, row0, TY, TH)
+    return sp, ras.cull_table(sp, row0), (TX, TY, TH, TW)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("band", [None, (544, 272)])
+def test_binning_kernels_match_plain_on_the_bundle(band):
+    """The bundle's 91,307 splats at 1920x1088 (16x32 tiles), on the full
+    frame and on a band-local grid at row 544: every TileBins field bit for
+    bit without caps and with cap and row_cap both cutting inside a
+    Gaussian; pack_rows' forward and backward equal."""
+    dev = _cuda()
+    sp, cull, grid = _bundle_splats(dev, band)
+    k, p = _bins_both(sp, cull, grid)
+    _assert_bins_equal(k, p)
+    assert p.n_instances > 100_000
+    _assert_pack_rows_equal(k, p, sp.depth.shape[0], dev)
+    from ibgs_tpu_torch.ops import binning
+    from ibgs_tpu_torch.utils import profiling
+    prof = profiling.device_time(
+        lambda: binning.bin_staircase_cuda(sp, grid[0], grid[1], 0, cull,
+                                           grid[2], grid[3], 0), dev)
+    # the zero fill, bin_key, 4 depth passes, bin_count, the totals' copy,
+    # bin_emit, 2 tile passes (4,080 or 1,020 tiles), bin_ranges
+    assert prof.get("device_launches") == 12, prof
+    cap, row_cap = bcases.caps_inside(
+        lambda c, rc: _bins_both(sp, cull, grid, c, rc)[1], sp, cull, *grid)
+    k, p = _bins_both(sp, cull, grid, cap, row_cap)
+    _assert_bins_equal(k, p)
+    assert p.rank.shape[0] == cap < p.n_instances
+    _assert_pack_rows_equal(k, p, sp.depth.shape[0], dev, seed=1)
+
+
+@pytest.mark.gpu
+def test_bin_splats_launches_the_kernels_and_syncs_once():
+    """`bin_splats(staircase=True)` on CUDA tensors launches each binning
+    kernel once and makes exactly one blocking host read (counted under
+    torch.cuda.set_sync_debug_mode("warn")); its device events are the
+    four kernels, the two sorts' and the read's copy."""
+    import warnings
+
+    from ibgs_tpu_torch.ops import binning
+    from ibgs_tpu_torch.utils import profiling
+    dev = _cuda()
+    sp, cull, TX, TY, TH, TW = bcases.scene("random", device=dev)
+
+    def call():
+        return binning.bin_splats(sp, TX, TY, 0, cull_tab=cull, tile_h=TH,
+                                  tile_w=TW, staircase=True)
+    call()
+    torch.cuda.synchronize()
+    before = dict(binning.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in seen if "synchroniz" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in seen]
+    # 128 tiles: one tile sort pass
+    assert {k: binning.LAUNCHES[k] - before[k] for k in before} == \
+        {"bin_key": 1, "bin_radix": 5, "bin_count": 1, "bin_emit": 1,
+         "bin_ranges": 1}
+    prof = profiling.device_time(call, dev, top=40)
+    print("\nbin_splats device events:", prof)
+    assert prof.get("device_launches") == 11, prof
+
+
+@pytest.mark.gpu
+def test_bin_splats_refuses_rectangles_outside_the_grid():
+    """A rectangle with rows outside the grid (which the projection never
+    writes) makes the kernels' wrapper raise after its one host read."""
+    from ibgs_tpu_torch.ops import binning
+    dev = _cuda()
+    sp, cull, TX, TY, TH, TW = bcases.scene("random", device=dev)
+    g = int(torch.nonzero(sp.n_tiles > 0)[0])
+    rect_max = sp.rect_max.clone()
+    rect_max[g, 1] = TY + 2
+    bad = dataclasses.replace(sp, rect_max=rect_max)
+    with pytest.raises(ValueError, match="outside"):
+        binning.bin_staircase_cuda(bad, TX, TY, 0, cull, TH, TW, 0)
