@@ -1,5 +1,6 @@
-"""Colour-fusion residual network and exposure correction, forward
-(counterpart of ibgs_tpu/models/aggregation.py).
+"""Colour-fusion residual network and the fusion step, forward
+(counterpart of ibgs_tpu/models/aggregation.py); the exposure correction
+it calls lives in `models/exposure.py`.
 
 The modules take and return the JAX package's (H, W, C) layouts and run
 NCHW convolutions inside.  Sub-module names follow the Flax parameter tree
@@ -13,6 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ibgs_tpu_torch.models.exposure import exposure_affine
 from ibgs_tpu_torch.ops.epilogue import bilinear_sample
 from ibgs_tpu_torch.utils import profiling
 
@@ -108,22 +110,6 @@ def init_fusion_net(net: ColorFusionResidualNet,
     return net
 
 
-def exposure_affine(render, first_warped, valid_mask):
-    """Fit I_warp ≈ A·[I_render; 1] on valid pixels (no grad through the
-    fit) by float32 normal equations and apply A.  render/first_warped:
-    (H, W, 3); valid_mask: (H, W).  Callers that compare with the JAX
-    package keep TF32 off (torch.backends.cuda.matmul.allow_tf32)."""
-    m = valid_mask.to(render.dtype).reshape(-1, 1)
-    X = torch.cat([render.reshape(-1, 3), torch.ones_like(m)], dim=-1)
-    Y = first_warped.reshape(-1, 3)
-    Xs = X.detach() * m
-    Ys = Y.detach() * m
-    G = Xs.T @ Xs + 1e-6 * torch.eye(4, dtype=render.dtype,
-                                     device=render.device)
-    A = torch.linalg.solve(G, Xs.T @ Ys)
-    return (X @ A).reshape(render.shape), A.T
-
-
 def resize_align_corners(x: torch.Tensor, H2: int, W2: int) -> torch.Tensor:
     """Bilinear resize of (H, W, C) with the corner-to-corner convention."""
     H, W = x.shape[0], x.shape[1]
@@ -159,8 +145,10 @@ def fuse_color(net: ColorFusionResidualNet, render, warped_image, cam_feat,
         mdd = min_depth_diff.detach()
 
         if enable_exposure_correction:
-            first = warped_image[0] * use_first_src_mask[..., None]
-            render_g, _A = exposure_affine(render_g, first, use_first_src_mask)
+            with profiling.annotate("exposure"):
+                first = warped_image[0] * use_first_src_mask[..., None]
+                render_g, _A = exposure_affine(render_g, first,
+                                               use_first_src_mask)
 
         valid = (feat.sum(-1, keepdim=True) > 0.0).to(render.dtype)
         residual_in = (warped - render_g[None]) * valid

@@ -12,8 +12,9 @@ a trace: a `record_function` range named `name`, or `name#ident` for the
 top span of one step or view (`train_step#<iteration>`,
 `render_one#<n>`), whose identifier every span nested in it shares.  The
 port opens them at its layer boundaries: `render`, `projection`,
-`binning`, `blend`, `epilogue`, `net`, `objective`, `backward`,
-`optimizer`, `source_depths`.  Spans are live only while a profiler
+`binning`, `blend`, `epilogue`, `net` (with `exposure` inside it when
+the exposure correction is on), `objective`, `backward`, `optimizer`,
+`source_depths`.  Spans are live only while a profiler
 session records (this module's `trace`, the benchmark's traced windows,
 any `torch.profiler.profile`): with none, a span is one read of the
 profiler's flag and a shared null context, under a microsecond; with one,

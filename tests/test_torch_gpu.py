@@ -51,6 +51,13 @@ equal tiles) and on the bundle at 1920x1088, full frame and a band at row
 544, without and with caps (12 device events a call there); one
 `bin_splats` launches each kernel once (the radix pass once per digit)
 and makes one blocking host read.
+
+The Tanks and Temples frame (`-k tnt`: the benchmark's `tnt-2m` scene at
+960x540, whose last tile row is 12/16 live): `render_one` with the
+exposure correction on against the benchmark's reference within the 1M
+serve cell's limits; the blend kernels against their plain versions on
+the instances of a geometry render of that frame; the warp kernels
+against theirs at 540 rows with 540-row source tables.
 """
 import dataclasses
 import zlib
@@ -462,8 +469,12 @@ def test_warp_kernels_match_plain(B, S, case):
     differs), its wdepth and depth_err bit for bit (the `valid` mask equal);
     warp_bwd_cuda equals warp_views_bwd_plain bit for bit, NaN in the same
     places; two backward runs bit-identical."""
-    dev = _cuda()
-    args, intr, cts, images = _warp_inputs(B, S, case, dev)
+    _check_warp(B, S, case, _cuda())
+
+
+def _check_warp(B, S, case, dev, H=48, W=80):
+    """test_warp_kernels_match_plain's comparisons on `_warp_inputs`."""
+    args, intr, cts, images = _warp_inputs(B, S, case, dev, H, W)
     packed = epilogue.rgb10_pack_cuda(images)
     k_fwd = epilogue.warp_fwd_cuda(*args, *intr)
     p_fwd = epilogue.warp_views_plain(*args, *intr)
@@ -1440,3 +1451,118 @@ def test_bin_splats_refuses_rectangles_outside_the_grid():
     bad = dataclasses.replace(sp, rect_max=rect_max)
     with pytest.raises(ValueError, match="outside"):
         binning.bin_staircase_cuda(bad, TX, TY, 0, cull, TH, TW, 0)
+
+
+# ------------------------------------------------ the Tanks and Temples frame
+
+TNT_W, TNT_H = 960, 540         # 540 rows: 33.75 tile rows, padded to 544
+
+
+def _tnt(dev, **cut):
+    """The benchmark's `tnt-2m` scene at 960x540 (both exposure options
+    on) and the port's and the reference's sides of it; `cut` overrides
+    configuration keys (fewer splats)."""
+    import dataclasses as dc
+
+    from benchmark import harness, sides
+
+    cfg, mod = harness.config_files("tnt-2m")
+    s = mod.build(dict(cfg, **cut), {"width": TNT_W, "height": TNT_H},
+                  2 ** 31 + 907, dev)
+    out = []
+    for m in (sides.port_modules(), sides.reference_modules()):
+        side = sides.Side(m, s, dev)
+        side.opt = dc.replace(side.opt, **cfg["options"])
+        out.append(side)
+    return s, out[0], out[1]
+
+
+@pytest.fixture
+def tf32_off():
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old
+
+
+@pytest.mark.gpu
+def test_tnt_serve_with_exposure_correction_matches_the_reference(tf32_off):
+    """`render_one` of the Tanks and Temples configuration (2M splats,
+    960x540, the exposure correction on) against the reference's served
+    view, within the limits of the 1M serve cell
+    (benchmark/checks/prod-1m.serve-544p.json): each output's relative L1
+    gap, on both test views nearest two train views."""
+    from benchmark import compare, harness
+
+    dev = _cuda()
+    s, port, ref = _tnt(dev)
+    assert port.opt.enable_exposure_correction
+    lim = harness.limits("prod-1m.serve-544p")
+    names = {"render": "render_gap", "depth": "median_depth_gap",
+             "warped": "warped_gap", "aggregate": "fused_gap"}
+    ev = port.m.render_driver.EvalRenderer(
+        port.model(), port.net(), s.images, port.w2v, port.centers,
+        port.cams, port.opt, port.rcfg, device=dev)
+    rmodel, rnet = ref.model(), ref.net().eval()
+    for k in range(2):
+        cam = port.camera(s.serve_views[k])
+        got = ev.render_one(cam, s.serve_nearest[k])
+        want = ref.m.serve.render_one(
+            rmodel, rnet, ref.stacks(), ref.cams, ref.opt, ref.rcfg,
+            ref.camera(s.serve_views[k]), s.serve_nearest[k])
+        assert got["render"].shape == (TNT_H, TNT_W, 3)
+        for key, name in names.items():
+            gap = compare.rel_l1(got[key], want[key])
+            assert gap <= lim[name], (k, key, gap)
+
+
+@pytest.mark.gpu
+def test_tnt_blend_kernels_match_plain_off_the_tile_grid():
+    """The blend kernels against their plain versions on the instances of
+    a geometry render at 960x540 (the tnt-2m scene cut to 50,000 splats),
+    its last tile row 12/16 live: forward at the forward tolerance, the
+    backward of seeded cotangents per column."""
+    dev = _cuda()
+    s, port, _ = _tnt(dev, seed_points=50_000, capacity=65_536)
+    seen = []
+    packed = blend.blend_packed
+
+    def keep(*a, **k):
+        seen.append(a)
+        return packed(*a, **k)
+
+    i = 0
+    state = port.train_state()
+    cache = {j: port.depth(state.model, j) for j in s.nearest[i][:4]}
+    src = port.sources(i, cache, port.cams[i])
+    blend.blend_packed = keep
+    try:
+        with torch.no_grad():
+            port.m.renderer.render_view(state.model, port.cams[i],
+                                        port.rcfg, port.bg, src=src)
+    finally:
+        blend.blend_packed = packed
+    feats, bins, Wp, Hp, fx, fy, cx, cy, cfg = seen[-1][:9]
+    assert (Wp, Hp) == (TNT_W, 544) and cfg.render_geo
+    args = (feats, bins.tile_start, bins.tile_stop, Wp, Hp, float(fx),
+            float(fy), float(cx), float(cy), cfg, 0.0)
+    got = blend.blend_fwd_cuda(*args)
+    want = blend.blend_plain(*args)
+    _assert_fwd_matches(got, want)
+    g = torch.Generator(device="cpu").manual_seed(540)
+    B = cfg.buffer_len
+    cts = tuple(torch.randn(sh, generator=g).to(dev) for sh in
+                [(Hp, Wp, 3), (Hp, Wp, 3), (Hp, Wp), (Hp, Wp, B),
+                 (Hp, Wp, B)])
+    _assert_columns_close(blend.blend_bwd_cuda(*args[:-1], got, cts, 0.0),
+                          blend.blend_bwd_plain(*args[:-1], got, cts, 0.0))
+
+
+@pytest.mark.gpu
+def test_tnt_warp_kernels_match_plain_at_540_rows():
+    """The warp kernels against their plain versions at 960x540 with
+    540-row source tables (test_warp_kernels_match_plain's comparisons)."""
+    _check_warp(4, 4, "tnt_540", _cuda(), H=TNT_H, W=TNT_W)

@@ -2,8 +2,9 @@
 
 * One CPU train step and one `render_one` of a tiny random scene inside
   the port's own profiler session (`utils/profiling.trace`, Python frames
-  on): the span tree is the layer table's (names, nesting, one top span a
-  step or view), and every backward node of the fusion net and of the
+  on; the exposure correction on, so `exposure` opens inside `net`): the
+  span tree is the layer table's (names, nesting, one top span a step or
+  view), and every backward node of the fusion net and of the
   loss stack (its forward op launched from `models/aggregation.py` or
   `train/losses.py`, read from the frames) is charged through the
   sequence-number link to `net.bwd` or `objective.bwd`.
@@ -46,7 +47,7 @@ PARENTS = {"render": {"train_step", "source_depths", "render_one"},
            "blend": {"render"}, "epilogue": {"render"},
            "objective": {"train_step"}, "net": {"objective", "render_one"},
            "backward": {"train_step"}, "optimizer": {"train_step"},
-           "source_depths": {"render_one"}}
+           "source_depths": {"render_one"}, "exposure": {"net"}}
 
 
 def _step_and_view():
@@ -63,7 +64,8 @@ def _step_and_view():
         model=model, app_ab=app, app_opt=trainer.SideOptState.init([app]),
         net=net, net_opt=trainer.SideOptState.init(list(net.parameters())),
         spatial_lr_scale=1.0)
-    opt = OptimizationParams(enable_mix_precision=False)
+    opt = OptimizationParams(enable_mix_precision=False,
+                             enable_exposure_correction=True)
     rcfg = RasterConfig(buffer_len=4, staircase_cull=True)
     step = trainer.make_train_step(opt, rcfg, net,
                                    trainer.StepPhase(True, True))
@@ -116,6 +118,7 @@ def test_span_tree_of_a_step_and_a_view(traced):
     assert sum(n == "render" for n, _ in tree) == 1 + S + 1
     assert sum(n == "binning" for n, _ in tree) == 2 * (1 + S + 1)
     assert sum(n == "net" for n, _ in tree) == 2
+    assert sum(n == "exposure" for n, _ in tree) == 2
 
 
 def test_backward_of_net_and_losses_resolves_to_their_spans(traced):
