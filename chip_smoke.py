@@ -40,16 +40,24 @@ Phases, one JSON line each; any failure makes the exit code 1:
              plain version on the bundle at 960x544 and 1920x1088 (also
              with cap and row_cap cutting the lists) and on the bench's
              random 1M scene at 960x544: every TileBins field equal
+  ssim       the SSIM kernels (csrc/ssim.cu) against the plain chain
+             (`losses.ssim_map_plain`) at 1920x1088 and 960x540, on a
+             seeded frame pair and on the train step's stack (the ground
+             truth expanded over 3 sources, batch stride 0): the map and
+             each gradient bit for bit against autograd through the plain
+             chain, repeats bit-identical; and each kernel's timing row
+             (device ms, byte bound, registers, spills, CTAs per SM, the
+             plain chain's ms)
   serve      EvalRenderer.render_one at 960x544 and 1920x1088: finite
              outputs, exactly 5 blend forwards and 5 projections, 1 rgb10
              pack, 1 warp forward and no backward per view, each binning
              kernel 5 times (the radix pass once a digit)
   train      10 IBGS training steps at 960x544 (render_geo + aggregation,
              iteration 13000), 1 launch of each kernel per step (the
-             binning kernels too), finite,
+             binning kernels too; 3 SSIM forwards and backwards), finite,
              loss falling; then 1 colour-only step (iteration 5000): 1
-             launch of each blend and projection kernel and no pack or
-             warp
+             launch of each blend and projection kernel, 1 SSIM forward
+             and backward, and no pack or warp
   timing     kernel / plain / serving / train-step times (CUDA events and
              host clock; the projection and binning kernels by their
              profiled device time), each kernel case's share of its bound
@@ -212,6 +220,13 @@ PRE_SCENE_N = 1_000_000            # the random scene of the bench (1M)
 PRE_PROFILED = 5                   # profiled calls per projection kernel
 BIN_FIELDS = ("order", "rank", "gauss_id", "tile_id", "inst_valid",
               "tile_start", "tile_stop", "slot", "seg_off")
+# the SSIM loss's frames: the bundle cell's and the Tanks and Temples
+# cell's; each as a frame pair and as the train step's stack of 3 sources
+SSIM_SIZES = [(1920, 1088), (960, 540)]
+# the SSIM kernels' calls a train step: the image loss, the multi-view
+# photometric loss and the aggregation loss (render_geo), the image loss
+# alone (colour); each forward with its backward
+SSIM_STEP = {1: 3, 0: 1}
 MODE_NAMES = {0: "color", 1: "render_geo", 2: "depth_only"}
 FIELDS = ("color", "normal", "final_t", "n_contrib", "buf_depth",
           "buf_weight", "buf_contrib")
@@ -334,6 +349,17 @@ def reset_launch_counts():
     for counts in (blend.LAUNCHES, epilogue.LAUNCHES, preprocess.LAUNCHES):
         for k in counts:
             counts[k] = 0
+
+
+def ssim_counts():
+    """The SSIM kernels' launch counts (ops/ssim.LAUNCHES)."""
+    from ibgs_tpu_torch.ops import ssim as tssim
+    return dict(tssim.LAUNCHES)
+
+
+def ssim_since(before):
+    now = ssim_counts()
+    return {k: now[k] - before[k] for k in before}
 
 
 def launches_since(before):
@@ -689,6 +715,109 @@ def gate_binning(sp, cull, grid, caps, tag, failures):
     return {"splats": sp.depth.shape[0], "cap": caps[0], "row_cap": caps[1],
             "n_instances": p.n_instances, "n_rows": p.n_rows,
             "kept": p.rank.shape[0], "differing": differing}
+
+
+def ssim_inputs(W, H, stack, dev):
+    """Seeded (img1, img2, map gradient) at W x H: a frame pair, or the
+    train step's stack: a frame expanded over 3 sources (batch stride 0)
+    against 3 others."""
+    import torch
+    g = torch.Generator().manual_seed(W * H + int(stack))
+    shape = (3, H, W, 3) if stack else (H, W, 3)
+    a = torch.rand(shape[-3:], generator=g)
+    b = (torch.rand(shape, generator=g) * 0.2 + 0.8 * a).clamp(0, 1)
+    ct = torch.randn(shape, generator=g)
+    a, b, ct = a.to(dev), b.to(dev), ct.to(dev)
+    return (a[None].expand_as(b) if stack else a), b, ct
+
+
+def ssim_phase(dev, failures):
+    """The SSIM kernels against the plain chain at SSIM_SIZES, on a frame
+    pair (both inputs need a gradient) and on the stack (the stack does):
+    the map and each gradient bit for bit against autograd through the
+    plain chain, repeats bit-identical.  Then the timing rows, as the
+    train step calls
+    the kernels (the frame's first input needs a gradient, the stack's
+    second): each kernel's device time (the median of profiled calls of
+    its one launch), its bound (each input byte read once, a stride-0
+    frame once, each output written once, at 3.35 TB/s), registers,
+    spills and CTAs per SM, and the plain chain's forward and backward
+    (CUDA events around calls, and its device time).  Returns (the
+    phase's record, the timing rows)."""
+    import torch
+    from ibgs_tpu_torch.ops import _cuda
+    from ibgs_tpu_torch.ops import ssim as tssim
+    from ibgs_tpu_torch.train import losses
+    from ibgs_tpu_torch.utils import profiling
+
+    def grads(fn, a, b, ct, need):
+        x = a.detach().requires_grad_(need[0])
+        y = b.detach().requires_grad_(need[1])
+        out = fn(x, y)
+        ins = [t for t in (x, y) if t.requires_grad]
+        return out.detach(), torch.autograd.grad((out * ct).sum(), ins)
+
+    rec, rows = {"phase": "ssim", "cases": {}}, []
+    for W, H in SSIM_SIZES:
+        for stack in (False, True):
+            tag = f"{'stack3_' if stack else ''}{W}x{H}"
+            a, b, ct = ssim_inputs(W, H, stack, dev)
+            need = (False, True) if stack else (True, True)
+            k = grads(tssim.ssim_map_cuda, a, b, ct, need)
+            p = grads(losses.ssim_map_plain, a, b, ct, need)
+            again = grads(tssim.ssim_map_cuda, a, b, ct, need)
+            case = {"map_same_bits": same_bits(k[0], p[0]),
+                    "grad_same_bits": [same_bits(u, v)
+                                       for u, v in zip(k[1], p[1])],
+                    "grad_max_abs_err": [float((u - v).abs().max())
+                                         for u, v in zip(k[1], p[1])],
+                    "repeat_same_bits": same_bits(k[0], again[0]) and all(
+                        same_bits(u, v) for u, v in zip(k[1], again[1]))}
+            if not (case["map_same_bits"] and all(case["grad_same_bits"])
+                    and case["repeat_same_bits"]):
+                failures.append(f"ssim {tag}: {case}")
+            rec["cases"][tag] = case
+            del k, p, again
+
+            need = (False, True) if stack else (True, False)
+            out, mom = tssim._forward(a, b, True)
+            frame = a.numel() // (3 if stack else 1)
+            n = b.numel()
+            calls = {
+                "ssim_fwd": (lambda: tssim._forward(a, b, True),
+                             4 * (frame + 2 * n)),
+                "ssim_bwd": (lambda: tssim._backward(a, b, ct, mom, *need),
+                             4 * (frame + 3 * n))}
+            x = a.detach().requires_grad_(need[0])
+            y = b.detach().requires_grad_(need[1])
+            ins = [t for t in (x, y) if t.requires_grad]
+            plain_out = losses.ssim_map_plain(x, y)
+            plain = {
+                "ssim_fwd": lambda: losses.ssim_map_plain(x, y),
+                "ssim_bwd": lambda: torch.autograd.grad(
+                    plain_out, ins, ct, retain_graph=True)}
+            for name, (kernel, nbytes) in calls.items():
+                runs = [profiling.device_time(kernel, DEVICE)
+                        for _ in range(PRE_PROFILED)]
+                if any(r.get("device_launches") != 1 for r in runs):
+                    failures.append(f"timing {name} {tag}: profiled calls "
+                                    f"{runs}")
+                    runs = [{"device_busy_ms": math.nan}]
+                k_ms = sorted(r["device_busy_ms"]
+                              for r in runs)[len(runs) // 2]
+                bound = nbytes / HBM_BYTES_S * 1e3
+                p_dev = profiling.device_time(plain[name], DEVICE)
+                rows.append({
+                    "kernel": name, "case": tag, "elements": n, "ms": k_ms,
+                    "events_ms": cuda_ms(kernel, 20), "bound_ms": bound,
+                    "bound_share": bound / k_ms, "bound_by": "bytes",
+                    "bytes": nbytes,
+                    "plain_ms": cuda_ms(plain[name], 3, warmup=1),
+                    "plain_device_ms": p_dev.get("device_busy_ms"),
+                    "plain_launches": p_dev.get("device_launches"),
+                    **_cuda.ssim_info(name)})
+            del out, mom, plain_out, x, y, ins
+    return rec, rows
 
 
 def preprocess_bytes(args, cts=None):
@@ -1571,15 +1700,18 @@ def parallel_phase(d, dev, scenes, inputs, opt, rcfg, failures):
 
 @contextlib.contextmanager
 def plain_blend():
-    """Route every kernel wrapper (blend, warp, projection, binning) to its
-    plain version on the card, so a run takes its plain path on the same
-    device and inputs."""
+    """Route every kernel wrapper (blend, warp, projection, binning, SSIM)
+    to its plain version on the card, so a run takes its plain path on the
+    same device and inputs."""
     from ibgs_tpu_torch.ops import binning, blend, epilogue
     from ibgs_tpu_torch.ops import preprocess as pre
+    from ibgs_tpu_torch.ops import ssim as tssim
+    from ibgs_tpu_torch.train import losses
     kernels = (blend.blend_fwd_cuda, blend.blend_bwd_cuda,
                epilogue.rgb10_pack_cuda, epilogue.warp_fwd_cuda,
                epilogue.warp_bwd_cuda, pre.preprocess_fwd_cuda,
-               pre.preprocess_bwd_cuda, binning.bin_staircase_cuda)
+               pre.preprocess_bwd_cuda, binning.bin_staircase_cuda,
+               tssim.ssim_map_cuda)
     blend.blend_fwd_cuda, blend.blend_bwd_cuda = (blend.blend_plain,
                                                   blend.blend_bwd_plain)
     epilogue.rgb10_pack_cuda = epilogue.pack_rgb10_rows
@@ -1588,13 +1720,15 @@ def plain_blend():
     pre.preprocess_fwd_cuda = pre.preprocess_fwd_plain
     pre.preprocess_bwd_cuda = pre.preprocess_bwd_plain
     binning.bin_staircase_cuda = binning.bin_staircase_plain
+    tssim.ssim_map_cuda = losses.ssim_map_plain
     try:
         yield
     finally:
         (blend.blend_fwd_cuda, blend.blend_bwd_cuda,
          epilogue.rgb10_pack_cuda, epilogue.warp_fwd_cuda,
          epilogue.warp_bwd_cuda, pre.preprocess_fwd_cuda,
-         pre.preprocess_bwd_cuda, binning.bin_staircase_cuda) = kernels
+         pre.preprocess_bwd_cuda, binning.bin_staircase_cuda,
+         tssim.ssim_map_cuda) = kernels
 
 
 @contextlib.contextmanager
@@ -2388,6 +2522,10 @@ def main():
                                                tag + "_caps", failures)
     emit(rec)
 
+    # ---- ssim: the SSIM kernels against the plain chain ---------------------
+    rec, ssim_cases = ssim_phase(dev, failures)
+    emit(rec)
+
     # ---- serve: the serving path, counted ----------------------------------
     net = init_fusion_net(ColorFusionResidualNet(
         32, opt.feat_aggregate_mode), torch.Generator().manual_seed(0))
@@ -2408,6 +2546,7 @@ def main():
                 "bin_radix": n * (4 + _cuda.bin_tile_passes(tiles))}
     outs, per_view, bin_view = {}, {}, {}
     reset_launch_counts()
+    ssim_before = ssim_counts()
     for wh in SIZES:
         before, bin_before = launch_counts(), dict(binning.LAUNCHES)
         outs[wh] = renderers[wh].render_one(scenes[wh]["cam"], nearest)
@@ -2416,6 +2555,7 @@ def main():
         bin_view[wh] = {k: binning.LAUNCHES[k] - bin_before[k]
                         for k in bin_before}
     serve_launches = launch_counts()
+    ssim_by_path = {"serve": ssim_since(ssim_before)}
     for wh in SIZES:
         sc, out = scenes[wh], outs[wh]
         finite = all(bool(torch.isfinite(v).all()) for v in out.values()
@@ -2457,8 +2597,11 @@ def main():
     steps = {mode: trainer.make_train_step(opt, rcfg, state.net, phases[mode])
              for mode in (1, 0)}
 
+    from ibgs_tpu_torch.ops import ssim as tssim
+
     def run_step(state, mode):
         before, bin_before = launch_counts(), dict(binning.LAUNCHES)
+        ssim_before = dict(tssim.LAUNCHES)
         state, aux = steps[mode](state, sc["cam"], 0, sc["gt"], src,
                                  iters[mode], bg, False, 1.0, NET_LR)
         torch.cuda.synchronize()
@@ -2467,10 +2610,15 @@ def main():
         if bin_step != bin_launches(1, wh):
             failures.append(f"train {MODE_NAMES[mode]}: binning launches "
                             f"{bin_step}, expected {bin_launches(1, wh)}")
+        ssim_step = {k: tssim.LAUNCHES[k] - ssim_before[k]
+                     for k in ssim_before}
+        if ssim_step != dict.fromkeys(ssim_before, SSIM_STEP[mode]):
+            failures.append(f"train {MODE_NAMES[mode]}: SSIM launches "
+                            f"{ssim_step}, expected {SSIM_STEP[mode]} each")
         row = {k: float(aux[k]) for k in TRAIN_AUX}
         row.update(nonfinite_grads=int(aux["nonfinite_grads"]),
                    n_instances=aux["n_instances"], n_rows=aux["n_rows"],
-                   launches=launches_since(before))
+                   launches=launches_since(before), ssim_launches=ssim_step)
         if not all(math.isfinite(row[k]) for k in TRAIN_AUX):
             failures.append(f"train {MODE_NAMES[mode]}: non-finite {row}")
         if row["nonfinite_grads"]:
@@ -2483,6 +2631,7 @@ def main():
         return state, row
 
     reset_launch_counts()
+    ssim_before = ssim_counts()
     geo_rows = []
     for _ in range(TRAIN_STEPS):
         state, row = run_step(state, 1)
@@ -2494,6 +2643,7 @@ def main():
     reset_launch_counts()
     state, color_row = run_step(state, 0)
     color_launches = launch_counts()
+    ssim_by_path["train"] = ssim_since(ssim_before)
     train_launches = {k: geo_launches[k] + color_launches[k]
                       for k in geo_launches}
     emit({"phase": "train", "size": f"{wh[0]}x{wh[1]}",
@@ -2761,7 +2911,7 @@ def main():
                                       f"timing train {wh}", failures)}
     emit({"phase": "timing", "blend_fwd": fwd_cases, "blend_bwd": bwd_cases,
           "warp": warp_cases, "preprocess": pre_cases,
-          "binning": bin_cases,
+          "binning": bin_cases, "ssim": ssim_cases,
           "tile_ranges": {f"{wh[0]}x{wh[1]}": range_lengths(preps[wh])
                           for wh in SIZES},
           "serve": serve_ms, "train_step": train_ms})
@@ -2771,30 +2921,40 @@ def main():
     del bin_in, sp_1m, sp, cull
     del state
     torch.cuda.empty_cache()
+    ssim_before = ssim_counts()
     rec, loop_launches, resume_launches = loop_phase(d, dev, failures)
+    ssim_by_path["loop"] = ssim_since(ssim_before)
     emit(rec)
 
     # ---- eval: the evaluation path on the loop's model, counted -------------
     torch.cuda.empty_cache()
+    ssim_before = ssim_counts()
     rec, eval_launches = eval_phase(d, dev, failures)
+    ssim_by_path["eval"] = ssim_since(ssim_before)
     emit(rec)
 
     # ---- parallel: bands, the Gaussian-sharded step, the mesh loop ----------
     torch.cuda.empty_cache()
     par_in = {wh: train_inputs(wh) for wh in SIZES}
+    ssim_before = ssim_counts()
     rec, par_launches = parallel_phase(d, dev, scenes, par_in, opt, rcfg,
                                        failures)
+    ssim_by_path["parallel"] = ssim_since(ssim_before)
     emit(rec)
     del par_in
 
     # ---- drivers: the production run at 1M seeds, bundle, suite, replay -----
     torch.cuda.empty_cache()
+    ssim_before = ssim_counts()
     rec, drv_launches = drivers_phase(dev, failures)
+    ssim_by_path["drivers"] = ssim_since(ssim_before)
     emit(rec)
 
     # ---- bench: the north-star step, the probes, the trace parser ---------
     torch.cuda.empty_cache()
+    ssim_before = ssim_counts()
     rec, bench_launches = bench_phase(dev, failures)
+    ssim_by_path["bench"] = ssim_since(ssim_before)
     emit(rec)
 
     # ---- kernels -----------------------------------------------------------
@@ -2815,7 +2975,17 @@ def main():
                             "drivers": drv_launches[k],
                             "bench": bench_launches[k]}
                         for k in launch_counts()}
-    emit({"phase": "kernels", "launches": launches_by_path})
+    emit({"phase": "kernels", "launches": launches_by_path,
+          "ssim_launches": ssim_by_path})
+    # the SSIM kernels run wherever a loss is taken on the card: every
+    # path but serving, which takes none (evaluation: forwards only)
+    for path, counts in ssim_by_path.items():
+        for k, n in counts.items():
+            if path == "serve" and n:
+                failures.append(f"{k} was launched on the serving path")
+            elif path != "serve" and not n and \
+                    not (path == "eval" and k == "ssim_bwd"):
+                failures.append(f"{k} was not launched on the {path} path")
     for k, by_path in launches_by_path.items():
         if by_path["train"] == 0:
             failures.append(f"{k} was not launched on the training path")

@@ -25,7 +25,8 @@ SOURCES = {"blend_fwd": CSRC / "blend_fwd.cu",
            "blend_bwd": CSRC / "blend_bwd.cu",
            "warp": CSRC / "warp.cu",
            "preprocess": CSRC / "preprocess.cu",
-           "binning": CSRC / "binning.cu"}
+           "binning": CSRC / "binning.cu",
+           "ssim": CSRC / "ssim.cu"}
 HEADERS = (CSRC / "blend_common.cuh",)
 # --fmad=false: no multiply-add contraction, so float ops round one by one
 # as the plain PyTorch versions' ops do (see the notes in the sources).
@@ -100,6 +101,16 @@ _SIGNATURES = {
     "ibgs_bin_tile_passes": ([_c_int], _c_int),
     "ibgs_bin_tile_state_words": ([_c_ll, _c_int], _c_ll),
     "ibgs_binning_info": ([_c_int, ctypes.POINTER(_c_int)], _c_int),
+    # x, x batch stride, y, y batch stride, B, H, W, C, the window, c1, c2,
+    # out, the moments, the stream
+    "ibgs_ssim_fwd": ([_c_ptr, _c_ll, _c_ptr, _c_ll] + [_c_int] * 4
+                      + [_c_ptr, _c_float, _c_float] + [_c_ptr] * 3, _c_int),
+    # x, x batch stride, y, y batch stride, B, H, W, C, the window, c1, c2,
+    # g, its 4 strides, the moments, x's 3 gradient terms, y's, the stream
+    "ibgs_ssim_bwd": ([_c_ptr, _c_ll, _c_ptr, _c_ll] + [_c_int] * 4
+                      + [_c_ptr, _c_float, _c_float, _c_ptr] + [_c_ll] * 4
+                      + [_c_ptr] * 8, _c_int),
+    "ibgs_ssim_info": ([_c_int, ctypes.POINTER(_c_int)], _c_int),
     "ibgs_cuda_error_string": ([_c_int], ctypes.c_char_p),
 }
 
@@ -426,3 +437,48 @@ def binning_info(kernel: str) -> dict:
                            f"{error_string(err)} ({err})")
     return dict(zip(("registers", "local_bytes", "ctas_per_sm", "threads"),
                     out))
+
+
+def ssim_window(weights) -> ctypes.Array:
+    """The 11 window weights as the float array the SSIM entries take."""
+    return (_c_float * len(weights))(*weights)
+
+
+def ssim_fwd(x, x_batch, y, y_batch, shape, window, c1, c2, out, mom,
+             stream) -> int:
+    """Launch ibgs_ssim_fwd: x, y (B, H, W, C) = `shape` float32 frames,
+    each contiguous, with batch strides x_batch, y_batch (0: one frame
+    for all), `window` from ssim_window → the map `out` and the five
+    moments `mom` (5, B, H, W, C), or None where no gradient is wanted.
+    Returns the CUDA error code of the launch (0 = success)."""
+    return load("ssim").ibgs_ssim_fwd(
+        x.data_ptr(), x_batch, y.data_ptr(), y_batch, *shape, window, c1,
+        c2, out.data_ptr(), _ptr(mom), stream)
+
+
+def ssim_bwd(x, x_batch, y, y_batch, shape, window, c1, c2, g, g_strides,
+             mom, dx, dy, stream) -> int:
+    """Launch ibgs_ssim_bwd: the forward's frames, window, constants and
+    moments, g the map's gradient read through `g_strides` (4, in floats)
+    → dx, dy: x's and y's 3 gradient terms (cross, square, mean), (B, H,
+    W, C) contiguous each, or None where not wanted.  Returns the CUDA
+    error code of the launch."""
+    terms = [_ptr(t) for d in (dx, dy)
+             for t in (d if d is not None else (None,) * 3)]
+    return load("ssim").ibgs_ssim_bwd(
+        x.data_ptr(), x_batch, y.data_ptr(), y_batch, *shape, window, c1,
+        c2, g.data_ptr(), *g_strides, mom.data_ptr(), *terms, stream)
+
+
+def ssim_info(kernel: str) -> dict:
+    """Registers, local (spill) bytes per thread, CTAs one SM holds at
+    once, threads per CTA and static shared bytes of `kernel` ("ssim_fwd"
+    or "ssim_bwd")."""
+    out = (_c_int * 5)()
+    err = load("ssim").ibgs_ssim_info(("ssim_fwd", "ssim_bwd").index(kernel),
+                                      out)
+    if err != 0:
+        raise RuntimeError(f"{kernel} attribute query failed: "
+                           f"{error_string(err)} ({err})")
+    return dict(zip(("registers", "local_bytes", "ctas_per_sm", "threads",
+                     "shared_bytes"), out))

@@ -413,6 +413,9 @@ def gsp_full_train_step(opt, rcfg: RasterConfig, net, phase, mesh,
         if phase.render_geo:
             floats += [(getattr(ibr, f), ax) for f, ax in _IBR_FLOAT]
         image, normal_full, *ibr_f = _gather_frame(floats, mesh, gs_ax)
+        # the gather's frames are channel slices of one buffer; the SSIM
+        # kernels take contiguous frames
+        image = image.contiguous()
         ibr_full = dnormal = median_full = None
         if phase.render_geo:
             ibr_i = _gather_frame([(getattr(ibr, f), ax)

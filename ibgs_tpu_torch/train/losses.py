@@ -2,9 +2,10 @@
 
 L1 / L2 / PSNR, exact-float32 SSIM with an 11-tap σ = 1.5 Gaussian window
 (separable, zero padding, H pass then W pass, shift-and-add as the JAX
-package does it), the 3DGS image loss, single-view normal consistency and
-the multi-view photometric loss, whose `vmap` over the S source views is a
-leading batch dimension here.  Images are (H, W, C), or (S, H, W, C) for
+package does it; on CUDA tensors the same map, bit for bit, from the
+kernels of ops/ssim.py), the 3DGS image loss, single-view normal
+consistency and the multi-view photometric loss, whose `vmap` over the S
+source views is a leading batch dimension here.  Images are (H, W, C), or (S, H, W, C) for
 stacks.
 """
 from __future__ import annotations
@@ -14,6 +15,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ibgs_tpu_torch.ops import ssim as ssim_ops
 
 C1 = 0.01 ** 2
 C2 = 0.03 ** 2
@@ -58,7 +61,16 @@ def _blur(img: torch.Tensor, size: int = 11, sigma: float = 1.5):
 
 
 def ssim_map(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
-    """Per-pixel, per-channel SSIM map (…, H, W, C)."""
+    """Per-pixel, per-channel SSIM map (…, H, W, C): the plain chain on CPU
+    tensors, the kernels of ops/ssim.py on CUDA ones (which raise on what
+    they do not take)."""
+    if img1.device.type == "cpu" and img2.device.type == "cpu":
+        return ssim_map_plain(img1, img2)
+    return ssim_ops.ssim_map_cuda(img1, img2)
+
+
+def ssim_map_plain(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    """Per-pixel, per-channel SSIM map (…, H, W, C) as torch ops."""
     mu1 = _blur(img1)
     mu2 = _blur(img2)
     mu1_sq, mu2_sq, mu12 = mu1 * mu1, mu2 * mu2, mu1 * mu2

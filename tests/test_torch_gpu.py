@@ -1566,3 +1566,177 @@ def test_tnt_warp_kernels_match_plain_at_540_rows():
     """The warp kernels against their plain versions at 960x540 with
     540-row source tables (test_warp_kernels_match_plain's comparisons)."""
     _check_warp(4, 4, "tnt_540", _cuda(), H=TNT_H, W=TNT_W)
+
+
+# ------------------------------------------------------------ the SSIM loss
+
+SSIM_CASES = {"frame_1080p": (1088, 1920, False),
+              "frame_540": (540, 960, False),
+              "stack_1080p": (1088, 1920, True)}
+
+
+def _ssim_inputs(case, dev):
+    """Seeded (img1, img2, map gradient) of an SSIM case: a frame pair, or
+    the train step's stack: the ground truth expanded over 3 sources
+    (batch stride 0) against the masked warps."""
+    H, W, stack = SSIM_CASES[case]
+    g = torch.Generator(device="cpu").manual_seed(zlib.crc32(case.encode()))
+    shape = (3, H, W, 3) if stack else (H, W, 3)
+    a = torch.rand(shape[-3:], generator=g)
+    b = (torch.rand(shape, generator=g) * 0.2 + 0.8 * a).clamp(0, 1)
+    ct = torch.randn(shape, generator=g)
+    a, b, ct = a.to(dev), b.to(dev), ct.to(dev)
+    if stack:
+        a = a[None].expand_as(b)
+    return a, b, ct
+
+
+def _ssim_grads(fn, a, b, ct, need=(True, True)):
+    """The map of fn and the gradients of Σ map·ct w.r.t. the inputs that
+    `need` one."""
+    x = a.detach().requires_grad_(need[0])
+    y = b.detach().requires_grad_(need[1])
+    out = fn(x, y)
+    ins = [t for t in (x, y) if t.requires_grad]
+    return (out.detach(), *torch.autograd.grad((out * ct).sum(), ins))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SSIM_CASES))
+def test_ssim_kernels_match_plain(case):
+    """The SSIM kernels (csrc/ssim.cu) against the plain chain on the card:
+    the map bit for bit, and each gradient bit for bit against autograd
+    through the plain chain, with both inputs, the first or the second
+    needing one (tests/test_torch_ssim_kernels.py gives the reason);
+    repeats bit-identical."""
+    from ibgs_tpu_torch.ops import ssim as tssim
+    from ibgs_tpu_torch.train import losses
+    dev = _cuda()
+    a, b, ct = _ssim_inputs(case, dev)
+    with torch.no_grad():
+        assert _same_bits(tssim.ssim_map_cuda(a, b),
+                          losses.ssim_map_plain(a, b))
+    for need in ((True, True), (True, False), (False, True)):
+        k = _ssim_grads(tssim.ssim_map_cuda, a, b, ct, need)
+        p = _ssim_grads(losses.ssim_map_plain, a, b, ct, need)
+        for u, v in zip(k, p):
+            assert _same_bits(u, v), (need, float((u - v).abs().max()))
+    again = _ssim_grads(tssim.ssim_map_cuda, a, b, ct, need)
+    assert all(_same_bits(u, v) for u, v in zip(k, again))
+
+
+@pytest.mark.gpu
+def test_ssim_map_launches_once_and_never_syncs():
+    """`losses.ssim_map` on CUDA tensors launches ssim_fwd once and, in the
+    backward, ssim_bwd once (counted by LAUNCHES; one device event forward
+    under no_grad), and makes no blocking host call
+    (torch.cuda.set_sync_debug_mode("warn")); `losses.ssim` and
+    `photometric_ssim` go through it."""
+    import warnings
+
+    from ibgs_tpu_torch.ops import ssim as tssim
+    from ibgs_tpu_torch.train import losses
+    from ibgs_tpu_torch.utils import profiling
+    dev = _cuda()
+    a, b, ct = _ssim_inputs("stack_1080p", dev)
+    y = b.clone().requires_grad_(True)
+
+    def call():
+        (g,) = torch.autograd.grad((losses.ssim_map(a, y) * ct).sum(), y)
+        return g
+    call()
+    torch.cuda.synchronize()
+    before = dict(tssim.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in seen if "synchroniz" in str(w.message)]
+    assert syncs == [], [str(w.message) for w in syncs]
+    assert {k: tssim.LAUNCHES[k] - before[k] for k in before} == \
+        {"ssim_fwd": 1, "ssim_bwd": 1}
+
+    def fwd():
+        with torch.no_grad():
+            losses.ssim_map(a, b)
+    prof = profiling.device_time(fwd, dev)
+    assert prof.get("device_launches") == 1, prof
+    before = dict(tssim.LAUNCHES)
+    x = a[0].clone().requires_grad_(True)
+    loss = losses.dssim_l1(x, b[0]) + losses.photometric_ssim(a, y).mean()
+    torch.autograd.grad(loss, (x, y))
+    assert {k: tssim.LAUNCHES[k] - before[k] for k in before} == \
+        {"ssim_fwd": 2, "ssim_bwd": 2}
+
+
+def _bundle_train_steps(dev, plain_ssim: bool, steps: int = 3):
+    """The bundle-91k.train-1080p cell's first `steps` train steps (state,
+    sources and view order as benchmark/drivers/train.py makes them, at
+    one seed), with `ssim_map` on the kernels or routed to the plain
+    chain: the loss terms of each step, the first step's gradient norms
+    and the leaves' change norms."""
+    from benchmark import compare, harness, sides
+    from ibgs_tpu_torch.ops import ssim as tssim
+    from ibgs_tpu_torch.train import losses
+
+    cfg, mod = harness.config_files("bundle-91k")
+    traffic = harness.traffic("train-1080p")
+    s = mod.build(cfg, traffic, 2 ** 31 + 18, dev)
+    port = sides.Side(sides.port_modules(), s, dev)
+    order = [int(i) for i in np.random.default_rng(18).permutation(
+        s.train_ids)]
+    state = port.train_state()
+    views = sorted({j for i in order for j in s.nearest[i][:4]})
+    cache = {j: port.depth(state.model, j) for j in views}
+    step = port.m.trainer.make_train_step(
+        port.opt, port.rcfg, state.net,
+        port.m.trainer.StepPhase(render_geo=True, use_aggregation=True))
+    kernel = tssim.ssim_map_cuda
+    if plain_ssim:
+        tssim.ssim_map_cuda = losses.ssim_map_plain
+    try:
+        losses_, grads = [], None
+        for k in range(steps):
+            i = order[k % len(order)]
+            state, aux = step(state, port.cams[i], i, s.images[i],
+                              port.sources(i, cache, port.cams[i]),
+                              int(traffic["iteration"]) + k, port.bg,
+                              bool(traffic["use_app"]),
+                              float(traffic["burned_in"]),
+                              float(traffic["net_lr"]))
+            losses_.append({n: float(aux[n]) for n in compare.LOSS_TERMS})
+            if k == 0:
+                grads = compare.floats(compare.grad_norms(state))
+        change = compare.floats(compare.leaf_norms(
+            state, base=compare.base_leaves(s)))
+    finally:
+        tssim.ssim_map_cuda = kernel
+    return losses_, grads, change
+
+
+@pytest.mark.gpu
+def test_bundle_train_step_with_ssim_kernels_matches_plain(tf32_off):
+    """Three train steps of the bundle at 1920x1088 (geometry and
+    aggregation, iteration 13,000) with the SSIM kernels against the same
+    steps with `ssim_map` routed to the plain chain: loss, gradient and
+    change gaps (benchmark/compare.py's numbers) 0, the kernels' gradient
+    terms being the plain chain's and added in its order; 3 + 3 SSIM
+    launches a step."""
+    from benchmark import compare
+    from ibgs_tpu_torch.ops import ssim as tssim
+    dev = _cuda()
+    before = dict(tssim.LAUNCHES)
+    k_loss, k_grads, k_change = _bundle_train_steps(dev, False)
+    assert {k: tssim.LAUNCHES[k] - before[k] for k in before} == \
+        {"ssim_fwd": 9, "ssim_bwd": 9}
+    p_loss, p_grads, p_change = _bundle_train_steps(dev, True)
+    leaves = compare.moved_leaves(p_grads)
+    lg = compare.loss_gap(k_loss, p_loss)
+    gg = compare.norm_gap(k_grads, p_grads, leaves)
+    sg = compare.norm_gap(k_change, p_change, leaves)
+    print(f"\nbundle steps, kernels against plain SSIM: loss {lg}, grad "
+          f"{gg}, step {sg}")
+    assert lg[0] == gg[0] == sg[0] == 0.0, (lg, gg, sg)
