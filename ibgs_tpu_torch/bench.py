@@ -58,7 +58,7 @@ from ibgs_tpu_torch.core.camera import look_at_camera, make_camera
 from ibgs_tpu_torch.models.gaussians import (PARAM_FIELDS, GaussianModel,
                                              GaussianParams,
                                              init_from_points)
-from ibgs_tpu_torch.ops import blend, epilogue, preprocess
+from ibgs_tpu_torch.ops import _cuda
 from ibgs_tpu_torch.ops.epilogue import SourceViews
 from ibgs_tpu_torch.ops.rasterize import RasterConfig
 from ibgs_tpu_torch.renderer import render_view
@@ -74,6 +74,10 @@ BASELINE_PIX_S = 6.0e6
 S = 4                       # source views of the random scene
 DEFAULT_N = 100_000
 SIZES = [(960, 544), (1920, 1088)]
+# the kernel launches a row reports, by group (keys of _cuda.LAUNCHES)
+LAUNCH_GROUPS = {"blend": ("blend_fwd", "blend_bwd"),
+                 "warp": ("rgb10_pack", "warp_fwd", "warp_bwd"),
+                 "preprocess": ("preprocess_fwd", "preprocess_bwd")}
 
 
 def round_up(x, m):
@@ -313,15 +317,13 @@ def run_config(args, dev, rng, model, bundle, n_splats, label, W, H):
         torch.cuda.reset_peak_memory_stats(dev)
     best = float("inf")
     for r in range(args.repeats):
-        before = {**blend.LAUNCHES, **epilogue.LAUNCHES,
-                  **preprocess.LAUNCHES}
+        before = dict(_cuda.LAUNCHES)
         best = min(best, profiling.wall_ms(
             lambda: chain(model, cam, cfg, src, gt, k, args.mode),
             device=dev) / 1e3)
         if r == 0:
-            now = {**blend.LAUNCHES, **epilogue.LAUNCHES,
-                   **preprocess.LAUNCHES}
-            chain_launches = {n: now[n] - before[n] for n in before}
+            chain_launches = {n: _cuda.LAUNCHES[n] - before[n]
+                              for n in before}
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
         else None
     dt = best / k
@@ -338,10 +340,8 @@ def run_config(args, dev, rng, model, bundle, n_splats, label, W, H):
         "device_busy_ms": prof.get("device_busy_ms"),
         "idle_share": prof["idle_share"],
         "launches": prof.get("device_launches"),
-        "blend_launches": {n: chain_launches[n] for n in blend.LAUNCHES},
-        "warp_launches": {n: chain_launches[n] for n in epilogue.LAUNCHES},
-        "preprocess_launches": {n: chain_launches[n]
-                                for n in preprocess.LAUNCHES},
+        **{f"{group}_launches": {n: chain_launches[n] for n in names}
+           for group, names in LAUNCH_GROUPS.items()},
         "chain_iters": k,
         "max_memory_allocated": peak,
     }

@@ -7,6 +7,12 @@ library name carries a hash of the source, the shared headers of `csrc/`
 and the flags, so an edited source is rebuilt and an unchanged one is
 reused.  All sources are compiled in parallel, one `nvcc` process each.
 Nothing here runs at import.
+
+Every kernel launch of the port goes through one wrapper here, which takes
+the current stream of its tensors' device, calls the C entry, raises a
+RuntimeError with the CUDA error string on a failed launch and counts the
+launches in LAUNCHES; `kernel_info` reads a kernel's registers, spills
+and occupancy.
 """
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "ops" / "csrc"
@@ -36,6 +44,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict = {}
+# launches of each kernel, counted by the launch wrappers below (bin_radix
+# once a sort pass: 4 for the depth order, 1-4 for the tile ids)
+LAUNCHES = dict.fromkeys(
+    ("blend_fwd", "blend_bwd", "rgb10_pack", "warp_fwd", "warp_bwd",
+     "preprocess_fwd", "preprocess_bwd", "bin_key", "bin_radix", "bin_count",
+     "bin_emit", "bin_ranges", "ssim_fwd", "ssim_bwd"), 0)
 
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _c_ll = ctypes.c_longlong
@@ -181,102 +195,103 @@ def error_string(err: int) -> str:
     return load("blend_fwd").ibgs_cuda_error_string(err).decode()
 
 
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: {error_string(err)} ({err})")
+
+
+def _launch(counts: dict, device, entry, *args) -> None:
+    """Call the C entry `entry` with `args` and the current stream of
+    `device`, with `device` current; raise a RuntimeError on a failed
+    launch, else add `counts` ({kernel: launches}) to LAUNCHES."""
+    with torch.cuda.device(device):
+        err = entry(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        _check(err, " / ".join(counts) + " kernel launch")
+    for name, k in counts.items():
+        LAUNCHES[name] += k
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def blend_fwd(feats, tile_start, tile_stop, tiles_x, tiles_y, tile_h,
               tile_w, splits, fx, fy, cx, cy, row0, buffer_len, mode, out,
-              order, stream) -> int:
+              order) -> None:
     """Launch ibgs_blend_fwd (the tile-order pre-pass and the blend);
     `out` is a BlendOutputs of allocated tensors, `splits` the tile's
     (splits_y, splits_x) sub-tiles and `order` int32 scratch of one entry
-    per tile.  Returns the CUDA error code of the launches (0 = success)."""
-    return load("blend_fwd").ibgs_blend_fwd(
-        feats.data_ptr(), feats.shape[1], tile_start.data_ptr(),
-        tile_stop.data_ptr(), tiles_x, tiles_y, tile_h, tile_w, *splits,
-        fx, fy, cx, cy, row0, buffer_len, mode,
-        out.color.data_ptr(), out.normal.data_ptr(), out.final_t.data_ptr(),
-        out.n_contrib.data_ptr(), out.buf_depth.data_ptr(),
-        out.buf_weight.data_ptr(), out.buf_contrib.data_ptr(),
-        order.data_ptr(), stream)
+    per tile."""
+    _launch({"blend_fwd": 1}, feats.device, load("blend_fwd").ibgs_blend_fwd,
+            feats.data_ptr(), feats.shape[1], tile_start.data_ptr(),
+            tile_stop.data_ptr(), tiles_x, tiles_y, tile_h, tile_w, *splits,
+            fx, fy, cx, cy, row0, buffer_len, mode,
+            out.color.data_ptr(), out.normal.data_ptr(),
+            out.final_t.data_ptr(), out.n_contrib.data_ptr(),
+            out.buf_depth.data_ptr(), out.buf_weight.data_ptr(),
+            out.buf_contrib.data_ptr(), order.data_ptr())
 
 
 def blend_bwd(feats, tile_start, tile_stop, tiles_x, tiles_y, tile_h,
               tile_w, splits, fx, fy, cx, cy, row0, buffer_len, mode, saved,
-              cts, out, scratch, workspace, stream) -> int:
+              cts, out, scratch, workspace) -> None:
     """Launch ibgs_blend_bwd (the tile-order pre-pass and the backward).
     `saved` is the 7 forward outputs (colour, normal, T, n_contrib, buf
     depth, buf weight, buf contrib) and `cts` the 5 cotangents (dcolor,
     dnormal, dT, dbuf_depth, dbuf_weight), all contiguous; `out` is the
     zeroed (n, 16) gradient table, `scratch` a (splits, n, 16) float32
     table or None for a tile of one sub-tile, `workspace` int32 scratch of
-    num_tiles * (2 + splits) entries.  Returns the CUDA error code of the
-    launches (0 = success)."""
+    num_tiles * (2 + splits) entries."""
     color, normal, final_t, n_contrib, _bd, buf_weight, buf_contrib = saved
-    return load("blend_bwd").ibgs_blend_bwd(
-        feats.data_ptr(), feats.shape[1], tile_start.data_ptr(),
-        tile_stop.data_ptr(), tiles_x, tiles_y, tile_h, tile_w, *splits,
-        fx, fy, cx, cy, row0, buffer_len, mode,
-        color.data_ptr(), normal.data_ptr(), final_t.data_ptr(),
-        n_contrib.data_ptr(), buf_weight.data_ptr(), buf_contrib.data_ptr(),
-        *(c.data_ptr() for c in cts), out.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), feats.shape[0],
-        workspace.data_ptr(), stream)
+    _launch({"blend_bwd": 1}, feats.device, load("blend_bwd").ibgs_blend_bwd,
+            feats.data_ptr(), feats.shape[1], tile_start.data_ptr(),
+            tile_stop.data_ptr(), tiles_x, tiles_y, tile_h, tile_w, *splits,
+            fx, fy, cx, cy, row0, buffer_len, mode,
+            color.data_ptr(), normal.data_ptr(), final_t.data_ptr(),
+            n_contrib.data_ptr(), buf_weight.data_ptr(),
+            buf_contrib.data_ptr(), *(c.data_ptr() for c in cts),
+            out.data_ptr(), _ptr(scratch), feats.shape[0],
+            workspace.data_ptr())
 
 
-def rgb10_pack(images, out, stream, source="warp") -> int:
+def rgb10_pack(images, out, source="warp") -> None:
     """Launch ibgs_rgb10_pack: images (S, Hs, Ws, 3) contiguous float32 into
     `out`, (S, Hs, Ws, 4) int32 footprint rows.  `source`: the library
-    (a name in SOURCES).  Returns the CUDA error code of the launch (0 =
-    success)."""
+    (a name in SOURCES)."""
     S, Hs, Ws = images.shape[:3]
-    return load(source).ibgs_rgb10_pack(images.data_ptr(), S, Hs, Ws,
-                                        out.data_ptr(), stream)
+    _launch({"rgb10_pack": 1}, images.device, load(source).ibgs_rgb10_pack,
+            images.data_ptr(), S, Hs, Ws, out.data_ptr())
 
 
 def warp_fwd(bd, bw, row_stride, tables, r2s, pdx, pdy, median, depths,
-             intr, outs, stream, source="warp") -> int:
+             intr, outs, source="warp") -> None:
     """Launch ibgs_warp_fwd: bd, bw (B, H, W) views of (H, W, B) buffers of
     `row_stride` floats per row, tables (S, Hs, Ws, 4) int32 footprint
     rows, r2s (S, 4, 4), pdx, pdy, median (H, W), depths (S, Hs, Ws),
     contiguous, `intr` (fx, fy, cx, cy); writes `outs` = (wsc (S, H, W,
-    3), ws, wdepth, depth_err (S, H, W)).  Returns the CUDA error code of
-    the launch."""
+    3), ws, wdepth, depth_err (S, H, W))."""
     B, H, W = bd.shape
     S, Hs, Ws = tables.shape[:3]
-    return load(source).ibgs_warp_fwd(
-        bd.data_ptr(), bw.data_ptr(), row_stride, tables.data_ptr(),
-        r2s.data_ptr(), pdx.data_ptr(), pdy.data_ptr(), median.data_ptr(),
-        depths.data_ptr(), B, H, W, S, Hs, Ws, *intr,
-        *(t.data_ptr() for t in outs), stream)
+    _launch({"warp_fwd": 1}, bd.device, load(source).ibgs_warp_fwd,
+            bd.data_ptr(), bw.data_ptr(), row_stride, tables.data_ptr(),
+            r2s.data_ptr(), pdx.data_ptr(), pdy.data_ptr(),
+            median.data_ptr(), depths.data_ptr(), B, H, W, S, Hs, Ws, *intr,
+            *(t.data_ptr() for t in outs))
 
 
 def warp_bwd(bd, bw, row_stride, tables, r2s, pdx, pdy, intr, g_wsc, g_wsum,
-             dbd, dbw, stream, source="warp") -> int:
+             dbd, dbw, source="warp") -> None:
     """Launch ibgs_warp_bwd: the forward's buffers, tables, transforms and
     rays and the contiguous cotangents g_wsc (S, H, W, 3), g_wsum (S, H,
-    W); writes dbd, dbw, contiguous (H, W, B).  Returns the CUDA error code
-    of the launch."""
+    W); writes dbd, dbw, contiguous (H, W, B)."""
     B, H, W = bd.shape
     S, Hs, Ws = tables.shape[:3]
-    return load(source).ibgs_warp_bwd(
-        bd.data_ptr(), bw.data_ptr(), row_stride, tables.data_ptr(),
-        r2s.data_ptr(), pdx.data_ptr(), pdy.data_ptr(), g_wsc.data_ptr(),
-        g_wsum.data_ptr(), B, H, W, S, Hs, Ws, *intr, dbd.data_ptr(),
-        dbw.data_ptr(), stream)
-
-
-def warp_info(kernel: str, B: int, S: int, source="warp") -> dict:
-    """Registers, local (spill) bytes per thread, CTAs one SM holds at once
-    and the CTA's width and height in threads of the warp kernel `kernel`
-    ("warp_fwd", "warp_bwd" or "rgb10_pack") as the port launches it for B
-    buffer entries and S sources (cudaFuncGetAttributes,
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    out = (_c_int * 5)()
-    which = ("warp_fwd", "warp_bwd", "rgb10_pack").index(kernel)
-    err = load(source).ibgs_warp_info(which, B, S, out)
-    if err != 0:
-        raise RuntimeError(f"{kernel} attribute query failed: "
-                           f"{error_string(err)} ({err})")
-    return dict(zip(("registers", "local_bytes", "ctas_per_sm", "cta_w",
-                     "cta_h"), out))
+    _launch({"warp_bwd": 1}, bd.device, load(source).ibgs_warp_bwd,
+            bd.data_ptr(), bw.data_ptr(), row_stride, tables.data_ptr(),
+            r2s.data_ptr(), pdx.data_ptr(), pdy.data_ptr(),
+            g_wsc.data_ptr(), g_wsum.data_ptr(), B, H, W, S, Hs, Ws, *intr,
+            dbd.data_ptr(), dbw.data_ptr())
 
 
 def occupancy(name: str, mode: int, buffer_len: int, sub_h: int,
@@ -285,67 +300,46 @@ def occupancy(name: str, mode: int, buffer_len: int, sub_h: int,
     ("blend_fwd" or "blend_bwd") in `mode` at `buffer_len` for a sub_h x
     sub_w sub-tile (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     blocks, threads = _c_int(0), _c_int(0)
-    err = getattr(load(name), f"ibgs_{name}_occupancy")(
+    _check(getattr(load(name), f"ibgs_{name}_occupancy")(
         mode, buffer_len, sub_h, sub_w, ctypes.byref(blocks),
-        ctypes.byref(threads))
-    if err != 0:
-        raise RuntimeError(f"{name} occupancy query failed: "
-                           f"{error_string(err)} ({err})")
+        ctypes.byref(threads)), f"{name} occupancy query")
     return blocks.value, threads.value
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
 def preprocess_fwd(xyz, scale, quat, opacity, sh, normal, offset, alive,
-                   active, cam, lims, tile_h, tile_w, outs, stream) -> int:
+                   active, cam, lims, tile_h, tile_w, outs) -> None:
     """Launch ibgs_preprocess_fwd: contiguous float32 inputs (sh (P, K, 3)
     or None for no colour, alive (P,) bool or None), the camera's
     matrices and centre, `lims` the frustum limits; writes the 10 tensors
-    of `outs` (rgb not when sh is None).  Returns the CUDA error code of
-    the launch (0 = success)."""
-    return load("preprocess").ibgs_preprocess_fwd(
-        xyz.data_ptr(), scale.data_ptr(), quat.data_ptr(), opacity.data_ptr(),
-        _ptr(sh), normal.data_ptr(), offset.data_ptr(), _ptr(alive),
-        xyz.shape[0], 0 if sh is None else sh.shape[1], active,
-        cam.view.data_ptr(), cam.full_proj.data_ptr(), cam.cam_pos.data_ptr(),
-        cam.fx, cam.fy, *lims, cam.width, cam.height, tile_h, tile_w,
-        *(t.data_ptr() if t.numel() else None for t in outs), stream)
+    of `outs` (rgb not when sh is None)."""
+    _launch({"preprocess_fwd": 1}, xyz.device,
+            load("preprocess").ibgs_preprocess_fwd,
+            xyz.data_ptr(), scale.data_ptr(), quat.data_ptr(),
+            opacity.data_ptr(), _ptr(sh), normal.data_ptr(),
+            offset.data_ptr(), _ptr(alive), xyz.shape[0],
+            0 if sh is None else sh.shape[1], active, cam.view.data_ptr(),
+            cam.full_proj.data_ptr(), cam.cam_pos.data_ptr(), cam.fx,
+            cam.fy, *lims, cam.width, cam.height, tile_h, tile_w,
+            *(t.data_ptr() if t.numel() else None for t in outs))
 
 
 def preprocess_bwd(xyz, scale, quat, sh, normal, offset, active, cam, lims,
-                   cts, grads, stream) -> int:
+                   cts, grads) -> None:
     """Launch ibgs_preprocess_bwd: the forward's float inputs and camera,
     `cts` the 5 cotangents (None = 0; read through their strides), writing
-    the 6 contiguous `grads` (sh's None when sh is None).  Returns the CUDA
-    error code of the launch."""
+    the 6 contiguous `grads` (sh's None when sh is None)."""
     ptrs = (_c_ptr * 5)(*(_ptr(c) for c in cts))
     strides = (_c_ll * 10)(*(v for c in cts for v in (
         (0, 0) if c is None else
         (c.stride(0), c.stride(1) if c.dim() > 1 else 0))))
-    return load("preprocess").ibgs_preprocess_bwd(
-        xyz.data_ptr(), scale.data_ptr(), quat.data_ptr(), _ptr(sh),
-        normal.data_ptr(), offset.data_ptr(), xyz.shape[0],
-        0 if sh is None else sh.shape[1], active, cam.view.data_ptr(),
-        cam.full_proj.data_ptr(), cam.cam_pos.data_ptr(), cam.fx, cam.fy,
-        *lims, cam.width, cam.height, ptrs, strides,
-        *(_ptr(g) for g in grads), stream)
-
-
-def preprocess_info(kernel: str, K: int) -> dict:
-    """Registers, local (spill) bytes per thread, CTAs one SM holds at once
-    and threads per CTA of `kernel` ("preprocess_fwd" or "preprocess_bwd")
-    for K SH coefficients (0: no colour)."""
-    out = (_c_int * 4)()
-    which = ("preprocess_fwd", "preprocess_bwd").index(kernel)
-    err = load("preprocess").ibgs_preprocess_info(which, K, out)
-    if err != 0:
-        raise RuntimeError(f"{kernel} attribute query failed: "
-                           f"{error_string(err)} ({err})")
-    return dict(zip(("registers", "local_bytes", "ctas_per_sm", "threads"),
-                    out))
-
+    _launch({"preprocess_bwd": 1}, xyz.device,
+            load("preprocess").ibgs_preprocess_bwd,
+            xyz.data_ptr(), scale.data_ptr(), quat.data_ptr(), _ptr(sh),
+            normal.data_ptr(), offset.data_ptr(), xyz.shape[0],
+            0 if sh is None else sh.shape[1], active, cam.view.data_ptr(),
+            cam.full_proj.data_ptr(), cam.cam_pos.data_ptr(), cam.fx,
+            cam.fy, *lims, cam.width, cam.height, ptrs, strides,
+            *(_ptr(g) for g in grads))
 
 
 BIN_KERNELS = ("bin_key", "bin_radix", "bin_count", "bin_emit", "bin_ranges")
@@ -366,77 +360,66 @@ def bin_tile_state_words(n: int, num_tiles: int) -> int:
     return load("binning").ibgs_bin_tile_state_words(n, num_tiles)
 
 
-def bin_order(depth, n_tiles, ws, scratch, order, stream) -> int:
+def bin_order(depth, n_tiles, ws, scratch, order) -> None:
     """Launch ibgs_bin_order: depth (P,) float32, n_tiles (P,) int32, ws
-    the zeroed workspace → bin_key and the depth sort's passes, order (P,)
-    int64; `scratch` = keys a, b and values a, b, (P,) int32 each.
-    Returns the CUDA error code of the launches (0 = success)."""
-    return load("binning").ibgs_bin_order(
-        depth.data_ptr(), n_tiles.data_ptr(), depth.shape[0], ws.data_ptr(),
-        *(t.data_ptr() for t in scratch), order.data_ptr(), stream)
+    the zeroed workspace → bin_key and the depth sort's 4 passes, order
+    (P,) int64; `scratch` = keys a, b and values a, b, (P,) int32 each."""
+    _launch({"bin_key": 1, "bin_radix": 4}, depth.device,
+            load("binning").ibgs_bin_order,
+            depth.data_ptr(), n_tiles.data_ptr(), depth.shape[0],
+            ws.data_ptr(), *(t.data_ptr() for t in scratch),
+            order.data_ptr())
 
 
-def bin_count(order, sp, cull_tab, grid, row_cap, ws, seg_off, kept,
-              stream) -> int:
+def bin_count(order, sp, cull_tab, grid, row_cap, ws, seg_off,
+              kept) -> None:
     """Launch ibgs_bin_count: the depth order (P,) int64, the Splats2D
     `sp`'s n_tiles, rect_min, rect_max (int32, contiguous), cull_tab (P,
     6) float32, `grid` = (tiles_x, tiles_y, tile_h, tile_w) → seg_off (P +
     1,) int64, kept rows (P,) int32, and ws[0:3] = rows, instances, the
-    out-of-grid flag.  Returns the CUDA error code of the launch."""
-    return load("binning").ibgs_bin_count(
-        order.data_ptr(), sp.n_tiles.data_ptr(), sp.rect_min.data_ptr(),
-        sp.rect_max.data_ptr(), cull_tab.data_ptr(), order.shape[0], *grid,
-        row_cap, ws.data_ptr(), seg_off.data_ptr(), kept.data_ptr(), stream)
+    out-of-grid flag."""
+    _launch({"bin_count": 1}, order.device, load("binning").ibgs_bin_count,
+            order.data_ptr(), sp.n_tiles.data_ptr(), sp.rect_min.data_ptr(),
+            sp.rect_max.data_ptr(), cull_tab.data_ptr(), order.shape[0],
+            *grid, row_cap, ws.data_ptr(), seg_off.data_ptr(),
+            kept.data_ptr())
 
 
 def bin_emit(order, sp, cull_tab, grid, seg_off, kept, tile, rank, ws,
-             state, stream) -> int:
+             state) -> None:
     """Launch ibgs_bin_emit: bin_count's inputs and outputs → the n =
     len(tile) kept slots' tile ids and depth ranks, (n,) int32 each, and
-    their digit counts in ws; zeroes `state` (the tile sort's).  Returns
-    the CUDA error code of the launch."""
-    return load("binning").ibgs_bin_emit(
-        order.data_ptr(), sp.n_tiles.data_ptr(), sp.rect_min.data_ptr(),
-        sp.rect_max.data_ptr(), cull_tab.data_ptr(), order.shape[0], *grid,
-        seg_off.data_ptr(), kept.data_ptr(), tile.shape[0], tile.data_ptr(),
-        rank.data_ptr(), ws.data_ptr(), state.data_ptr(), stream)
+    their digit counts in ws; zeroes `state` (the tile sort's)."""
+    _launch({"bin_emit": 1}, order.device, load("binning").ibgs_bin_emit,
+            order.data_ptr(), sp.n_tiles.data_ptr(), sp.rect_min.data_ptr(),
+            sp.rect_max.data_ptr(), cull_tab.data_ptr(), order.shape[0],
+            *grid, seg_off.data_ptr(), kept.data_ptr(), tile.shape[0],
+            tile.data_ptr(), rank.data_ptr(), ws.data_ptr(),
+            state.data_ptr())
 
 
-def bin_tiles(tile, num_tiles, P, ws, state, scratch, tile_sorted, slot,
-              stream) -> int:
-    """Launch ibgs_bin_tiles, the tile sort's passes: bin_emit's (n,) tile
-    ids → tile_sorted (n,) int32 and slot (n,) int64; `scratch` = keys b,
-    values a, b, (n,) int32 each.  Returns the CUDA error code of the
-    launches."""
-    return load("binning").ibgs_bin_tiles(
-        tile.shape[0], num_tiles, P, ws.data_ptr(), state.data_ptr(),
-        tile.data_ptr(), *(t.data_ptr() for t in scratch),
-        tile_sorted.data_ptr(), slot.data_ptr(), stream)
+def bin_tiles(tile, num_tiles, P, ws, state, scratch, tile_sorted,
+              slot) -> None:
+    """Launch ibgs_bin_tiles, the tile sort's passes (one bin_radix
+    launch each): bin_emit's (n,) tile ids → tile_sorted (n,) int32 and
+    slot (n,) int64; `scratch` = keys b, values a, b, (n,) int32 each."""
+    _launch({"bin_radix": bin_tile_passes(num_tiles)}, tile.device,
+            load("binning").ibgs_bin_tiles,
+            tile.shape[0], num_tiles, P, ws.data_ptr(), state.data_ptr(),
+            tile.data_ptr(), *(t.data_ptr() for t in scratch),
+            tile_sorted.data_ptr(), slot.data_ptr())
 
 
-def bin_ranges(tile_sorted, perm, slot_rank, order, num_tiles, outs,
-               stream) -> int:
+def bin_ranges(tile_sorted, perm, slot_rank, order, num_tiles,
+               outs) -> None:
     """Launch ibgs_bin_ranges: the tile sort's (n,) keys and int64
     permutation, bin_emit's ranks, the depth order → `outs` = rank,
     gauss_id, tile_id (n,) int64, inst_valid (n,) bool, start (num_tiles +
-    1,) int32.  Returns the CUDA error code of the launch."""
-    return load("binning").ibgs_bin_ranges(
-        tile_sorted.data_ptr(), perm.data_ptr(), slot_rank.data_ptr(),
-        order.data_ptr(), tile_sorted.shape[0], num_tiles,
-        *(t.data_ptr() for t in outs), stream)
-
-
-def binning_info(kernel: str) -> dict:
-    """Registers, local (spill) bytes per thread, CTAs one SM holds at once
-    and threads per CTA of the binning kernel `kernel` (a BIN_KERNELS
-    name; bin_radix as its intermediate passes build)."""
-    out = (_c_int * 4)()
-    err = load("binning").ibgs_binning_info(BIN_KERNELS.index(kernel), out)
-    if err != 0:
-        raise RuntimeError(f"{kernel} attribute query failed: "
-                           f"{error_string(err)} ({err})")
-    return dict(zip(("registers", "local_bytes", "ctas_per_sm", "threads"),
-                    out))
+    1,) int32."""
+    _launch({"bin_ranges": 1}, order.device, load("binning").ibgs_bin_ranges,
+            tile_sorted.data_ptr(), perm.data_ptr(), slot_rank.data_ptr(),
+            order.data_ptr(), tile_sorted.shape[0], num_tiles,
+            *(t.data_ptr() for t in outs))
 
 
 def ssim_window(weights) -> ctypes.Array:
@@ -444,41 +427,58 @@ def ssim_window(weights) -> ctypes.Array:
     return (_c_float * len(weights))(*weights)
 
 
-def ssim_fwd(x, x_batch, y, y_batch, shape, window, c1, c2, out, mom,
-             stream) -> int:
+def ssim_fwd(x, x_batch, y, y_batch, shape, window, c1, c2, out,
+             mom) -> None:
     """Launch ibgs_ssim_fwd: x, y (B, H, W, C) = `shape` float32 frames,
     each contiguous, with batch strides x_batch, y_batch (0: one frame
     for all), `window` from ssim_window → the map `out` and the five
-    moments `mom` (5, B, H, W, C), or None where no gradient is wanted.
-    Returns the CUDA error code of the launch (0 = success)."""
-    return load("ssim").ibgs_ssim_fwd(
-        x.data_ptr(), x_batch, y.data_ptr(), y_batch, *shape, window, c1,
-        c2, out.data_ptr(), _ptr(mom), stream)
+    moments `mom` (5, B, H, W, C), or None where no gradient is wanted."""
+    _launch({"ssim_fwd": 1}, x.device, load("ssim").ibgs_ssim_fwd,
+            x.data_ptr(), x_batch, y.data_ptr(), y_batch, *shape, window,
+            c1, c2, out.data_ptr(), _ptr(mom))
 
 
 def ssim_bwd(x, x_batch, y, y_batch, shape, window, c1, c2, g, g_strides,
-             mom, dx, dy, stream) -> int:
+             mom, dx, dy) -> None:
     """Launch ibgs_ssim_bwd: the forward's frames, window, constants and
     moments, g the map's gradient read through `g_strides` (4, in floats)
     → dx, dy: x's and y's 3 gradient terms (cross, square, mean), (B, H,
-    W, C) contiguous each, or None where not wanted.  Returns the CUDA
-    error code of the launch."""
+    W, C) contiguous each, or None where not wanted."""
     terms = [_ptr(t) for d in (dx, dy)
              for t in (d if d is not None else (None,) * 3)]
-    return load("ssim").ibgs_ssim_bwd(
-        x.data_ptr(), x_batch, y.data_ptr(), y_batch, *shape, window, c1,
-        c2, g.data_ptr(), *g_strides, mom.data_ptr(), *terms, stream)
+    _launch({"ssim_bwd": 1}, x.device, load("ssim").ibgs_ssim_bwd,
+            x.data_ptr(), x_batch, y.data_ptr(), y_batch, *shape, window,
+            c1, c2, g.data_ptr(), *g_strides, mom.data_ptr(), *terms)
 
 
-def ssim_info(kernel: str) -> dict:
-    """Registers, local (spill) bytes per thread, CTAs one SM holds at
-    once, threads per CTA and static shared bytes of `kernel` ("ssim_fwd"
-    or "ssim_bwd")."""
-    out = (_c_int * 5)()
-    err = load("ssim").ibgs_ssim_info(("ssim_fwd", "ssim_bwd").index(kernel),
-                                      out)
-    if err != 0:
-        raise RuntimeError(f"{kernel} attribute query failed: "
-                           f"{error_string(err)} ({err})")
-    return dict(zip(("registers", "local_bytes", "ctas_per_sm", "threads",
-                     "shared_bytes"), out))
+# kernel: (library, attribute entry, the kernel's index there, the fields
+# the entry writes)
+_SM = ("registers", "local_bytes", "ctas_per_sm")
+_INFO = {
+    **{k: ("warp", "ibgs_warp_info", i, _SM + ("cta_w", "cta_h"))
+       for i, k in enumerate(("warp_fwd", "warp_bwd", "rgb10_pack"))},
+    **{k: ("preprocess", "ibgs_preprocess_info", i, _SM + ("threads",))
+       for i, k in enumerate(("preprocess_fwd", "preprocess_bwd"))},
+    **{k: ("binning", "ibgs_binning_info", i, _SM + ("threads",))
+       for i, k in enumerate(BIN_KERNELS)},
+    **{k: ("ssim", "ibgs_ssim_info", i, _SM + ("threads", "shared_bytes"))
+       for i, k in enumerate(("ssim_fwd", "ssim_bwd"))},
+}
+
+
+def kernel_info(kernel: str, *shape, source=None) -> dict:
+    """Registers, local (spill) bytes per thread and CTAs one SM holds at
+    once (cudaFuncGetAttributes,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor) of `kernel` as the port
+    launches it, with its CTA's size: cta_w and cta_h in threads for the
+    warp kernels, threads for the others, and static shared bytes for the
+    SSIM kernels.  `shape` is what the kernel is built for: B buffer
+    entries and S sources for the warp kernels, K SH coefficients (0: no
+    colour) for the projection's, nothing for the others (bin_radix as
+    its intermediate passes build).  `source`: the library, if not the
+    port's own (a name in SOURCES)."""
+    lib, entry, which, fields = _INFO[kernel]
+    out = (_c_int * len(fields))()
+    _check(getattr(load(source or lib), entry)(which, *shape, out),
+           f"{kernel} attribute query")
+    return dict(zip(fields, out))

@@ -18,7 +18,7 @@ which `pack_rows`' backward turns into deterministic segment sums.
 The staircase path has two versions of one algorithm, chosen by the
 tensors' device alone: on CPU tensors the plain torch version
 (`bin_staircase_plain`), on CUDA tensors the hand-written kernels
-of csrc/binning.cu (`bin_staircase_cuda`, counted in LAUNCHES), bit for
+of csrc/binning.cu (`bin_staircase_cuda`, launched through `_cuda`), bit for
 bit the same TileBins in 12 device events and one host read a render
 (their own radix sorts in place of the plain version's `torch.sort`s).
 There is no fallback: a CUDA input the kernels do not take raises.  The
@@ -31,13 +31,10 @@ from typing import Optional
 
 import torch
 
+from ibgs_tpu_torch.ops import _cuda
 from ibgs_tpu_torch.ops.preprocess import Splats2D, to_i32
 from ibgs_tpu_torch.utils import profiling
 
-# kernel launches (counted by the wrapper where it launches; bin_radix
-# once a sort pass: 4 for the depth order, 1-4 for the tile ids)
-LAUNCHES = {"bin_key": 0, "bin_radix": 0, "bin_count": 0, "bin_emit": 0,
-            "bin_ranges": 0}
 _I32_MAX = 2 ** 31 - 1
 
 
@@ -213,16 +210,6 @@ def _check_cuda(sp: Splats2D, cull_tab: torch.Tensor, tiles_x: int,
                              f"CUDA device, got {t.device} and {dev}")
 
 
-def _launched(err, **counts):
-    """Raise on a failed launch, else count the launches in LAUNCHES."""
-    from ibgs_tpu_torch.ops import _cuda
-    if err != 0:
-        raise RuntimeError(f"{' / '.join(counts)} kernel launch failed: "
-                           f"{_cuda.error_string(err)} ({err})")
-    for name, k in counts.items():
-        LAUNCHES[name] += k
-
-
 def bin_staircase_cuda(sp: Splats2D, tiles_x: int, tiles_y: int, cap: int,
                        cull_tab: torch.Tensor, tile_h: int, tile_w: int,
                        row_cap: int) -> TileBins:
@@ -233,8 +220,6 @@ def bin_staircase_cuda(sp: Splats2D, tiles_x: int, tiles_y: int, cap: int,
     which sizes the lists), bin_emit, the tile sort's passes and
     bin_ranges.  Raises ValueError where a rectangle with rows lies outside
     the grid (the projection's never do; their tile ids would not sort)."""
-    from ibgs_tpu_torch.ops import _cuda
-
     _check_cuda(sp, cull_tab, tiles_x, tiles_y, tile_h, tile_w, cap,
                 row_cap)
     dev = sp.depth.device
@@ -245,41 +230,34 @@ def bin_staircase_cuda(sp: Splats2D, tiles_x: int, tiles_y: int, cap: int,
 
     def ints(k, m):
         return [torch.empty(k, dtype=i32, device=dev) for _ in range(m)]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        ws = torch.zeros(_cuda.bin_workspace_words(P), dtype=i64, device=dev)
-        order = torch.empty(P, dtype=i64, device=dev)
-        _launched(_cuda.bin_order(sp.depth, sp.n_tiles, ws, ints(P, 4),
-                                  order, stream), bin_key=1, bin_radix=4)
-        seg_off = torch.empty(P + 1, dtype=i64, device=dev)
-        kept = torch.empty(P, dtype=i32, device=dev)
-        _launched(_cuda.bin_count(order, sp, cull_tab, grid, row_cap, ws,
-                                  seg_off, kept, stream), bin_count=1)
-        n_rows, total, outside = ws[:3].tolist()
-        if outside:
-            raise ValueError(f"bin_splats: a tile rectangle with rows lies "
-                             f"outside the {tiles_x}x{tiles_y} grid")
-        n = min(total, cap) if cap else total
-        if n >= _I32_MAX:
-            raise ValueError(f"bin_splats: {n} instances, the kernels take "
-                             f"fewer than 2^31 - 1")
-        state = torch.empty(_cuda.bin_tile_state_words(n, num_tiles),
-                            dtype=i64, device=dev)
-        tile, slot_rank, tile_sorted, *tile_scratch = ints(n, 6)
-        _launched(_cuda.bin_emit(order, sp, cull_tab, grid, seg_off, kept,
-                                 tile, slot_rank, ws, state, stream),
-                  bin_emit=1)
-        perm = torch.empty(n, dtype=i64, device=dev)
-        _launched(_cuda.bin_tiles(tile, num_tiles, P, ws, state,
-                                  tile_scratch, tile_sorted, perm, stream),
-                  bin_radix=_cuda.bin_tile_passes(num_tiles))
-        outs = (torch.empty(n, dtype=i64, device=dev),
-                torch.empty(n, dtype=i64, device=dev),
-                torch.empty(n, dtype=i64, device=dev),
-                torch.empty(n, dtype=torch.bool, device=dev),
-                torch.empty(num_tiles + 1, dtype=i32, device=dev))
-        _launched(_cuda.bin_ranges(tile_sorted, perm, slot_rank, order,
-                                   num_tiles, outs, stream), bin_ranges=1)
+    ws = torch.zeros(_cuda.bin_workspace_words(P), dtype=i64, device=dev)
+    order = torch.empty(P, dtype=i64, device=dev)
+    _cuda.bin_order(sp.depth, sp.n_tiles, ws, ints(P, 4), order)
+    seg_off = torch.empty(P + 1, dtype=i64, device=dev)
+    kept = torch.empty(P, dtype=i32, device=dev)
+    _cuda.bin_count(order, sp, cull_tab, grid, row_cap, ws, seg_off, kept)
+    n_rows, total, outside = ws[:3].tolist()
+    if outside:
+        raise ValueError(f"bin_splats: a tile rectangle with rows lies "
+                         f"outside the {tiles_x}x{tiles_y} grid")
+    n = min(total, cap) if cap else total
+    if n >= _I32_MAX:
+        raise ValueError(f"bin_splats: {n} instances, the kernels take "
+                         f"fewer than 2^31 - 1")
+    state = torch.empty(_cuda.bin_tile_state_words(n, num_tiles),
+                        dtype=i64, device=dev)
+    tile, slot_rank, tile_sorted, *tile_scratch = ints(n, 6)
+    _cuda.bin_emit(order, sp, cull_tab, grid, seg_off, kept, tile,
+                   slot_rank, ws, state)
+    perm = torch.empty(n, dtype=i64, device=dev)
+    _cuda.bin_tiles(tile, num_tiles, P, ws, state, tile_scratch,
+                    tile_sorted, perm)
+    outs = (torch.empty(n, dtype=i64, device=dev),
+            torch.empty(n, dtype=i64, device=dev),
+            torch.empty(n, dtype=i64, device=dev),
+            torch.empty(n, dtype=torch.bool, device=dev),
+            torch.empty(num_tiles + 1, dtype=i32, device=dev))
+    _cuda.bin_ranges(tile_sorted, perm, slot_rank, order, num_tiles, outs)
     rank, gauss_id, tile_id, inst_valid, start = outs
     return TileBins(
         order=order, rank=rank, gauss_id=gauss_id, tile_id=tile_id,

@@ -34,6 +34,7 @@ from typing import Optional
 import torch
 
 from ibgs_tpu_torch.core.camera import device_scalar
+from ibgs_tpu_torch.ops import _cuda
 from ibgs_tpu_torch.ops import blend_common as bc
 from ibgs_tpu_torch.ops.blend_common import BlendConfig, BlendOutputs
 from ibgs_tpu_torch.utils import profiling
@@ -43,9 +44,6 @@ CF = 16             # packed feature channels of the JAX package's table
 FX, FY, FCA, FCB, FCC, FOP, FR, FG, FB, FNX, FNY, FNZ, FD, FAX, FAY, FPAD = range(16)
 N_READ = FD + 1     # channels the forward reads
 
-# Kernel launch counts, by kernel name.  Only the wrapper's launch site
-# adds to them.
-LAUNCHES = {"blend_fwd": 0, "blend_bwd": 0}
 # threads (one per pixel) of one sub-tile CTA of each kernel, and the most
 # sub-tiles of one tile (csrc/blend_fwd.cu, blend_bwd.cu, blend_common.cuh)
 FWD_CTA, BWD_CTA, MAX_SPLITS = 256, 128, 8
@@ -213,10 +211,8 @@ def blend_fwd_cuda(feats: torch.Tensor, tile_start: torch.Tensor,
                    fx: float, fy: float, cx: float, cy: float,
                    cfg: BlendConfig, row0: float = 0.0) -> BlendOutputs:
     """Launch the CUDA blend forward on the current stream: the tile-order
-    pre-pass and the blend kernel (csrc/blend_fwd.cu), one count in
-    LAUNCHES."""
-    from ibgs_tpu_torch.ops import _cuda
-
+    pre-pass and the blend kernel (csrc/blend_fwd.cu), one launch of
+    `_cuda.blend_fwd`."""
     _check_inputs(feats, tile_start, tile_stop, Wp, Hp, cfg)
     if feats.device.type != "cuda":
         raise ValueError(f"blend_fwd_cuda: tensors must be on a CUDA device, "
@@ -236,17 +232,10 @@ def blend_fwd_cuda(feats: torch.Tensor, tile_start: torch.Tensor,
         buf_depth=torch.empty(Hp, Wp, B, dtype=f32, device=dev),
         buf_weight=torch.empty(Hp, Wp, B, dtype=f32, device=dev),
         buf_contrib=torch.empty(Hp, Wp, B, dtype=i32, device=dev))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _cuda.blend_fwd(
-            feats, tile_start, tile_stop, Wp // cfg.tile_w, Hp // cfg.tile_h,
-            cfg.tile_h, cfg.tile_w, splits, fx, fy, cx, cy, row0, B,
-            mode_of(cfg), out,
-            torch.empty(tile_start.numel(), dtype=i32, device=dev), stream)
-    if err != 0:
-        raise RuntimeError(f"blend_fwd kernel launch failed: "
-                           f"{_cuda.error_string(err)} ({err})")
-    LAUNCHES["blend_fwd"] += 1
+    _cuda.blend_fwd(feats, tile_start, tile_stop, Wp // cfg.tile_w,
+                    Hp // cfg.tile_h, cfg.tile_h, cfg.tile_w, splits, fx, fy,
+                    cx, cy, row0, B, mode_of(cfg), out,
+                    torch.empty(tile_start.numel(), dtype=i32, device=dev))
     return out
 
 
@@ -405,11 +394,9 @@ def blend_bwd_cuda(feats: torch.Tensor, tile_start: torch.Tensor,
                    cfg: BlendConfig, saved: BlendOutputs, cts,
                    row0: float = 0.0) -> torch.Tensor:
     """Launch the CUDA blend backward on the current stream: the tile-order
-    pre-pass and the backward kernel (csrc/blend_bwd.cu), one count in
-    LAUNCHES.  Returns the (n, 16) gradient table (rows the walk never
-    reaches are zero)."""
-    from ibgs_tpu_torch.ops import _cuda
-
+    pre-pass and the backward kernel (csrc/blend_bwd.cu), one launch of
+    `_cuda.blend_bwd`.  Returns the (n, 16) gradient table (rows the walk
+    never reaches are zero)."""
     _check_inputs(feats, tile_start, tile_stop, Wp, Hp, cfg)
     _check_bwd(saved, cts, Wp, Hp, cfg.buffer_len, feats.device)
     if feats.device.type != "cuda":
@@ -428,17 +415,10 @@ def blend_bwd_cuda(feats: torch.Tensor, tile_start: torch.Tensor,
     scratch = torch.empty(S, n, CF, dtype=f32, device=dev) if S > 1 else None
     workspace = torch.empty(tile_start.numel() * (2 + S), dtype=torch.int32,
                             device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _cuda.blend_bwd(
-            feats, tile_start.contiguous(), tile_stop.contiguous(),
-            Wp // cfg.tile_w, Hp // cfg.tile_h, cfg.tile_h, cfg.tile_w,
-            splits, fx, fy, cx, cy, row0, cfg.buffer_len, mode_of(cfg),
-            c[:7], c[7:], out, scratch, workspace, stream)
-    if err != 0:
-        raise RuntimeError(f"blend_bwd kernel launch failed: "
-                           f"{_cuda.error_string(err)} ({err})")
-    LAUNCHES["blend_bwd"] += 1
+    _cuda.blend_bwd(feats, tile_start.contiguous(), tile_stop.contiguous(),
+                    Wp // cfg.tile_w, Hp // cfg.tile_h, cfg.tile_h,
+                    cfg.tile_w, splits, fx, fy, cx, cy, row0, cfg.buffer_len,
+                    mode_of(cfg), c[:7], c[7:], out, scratch, workspace)
     return out
 
 

@@ -19,8 +19,8 @@ each texel's 2x2 footprint of int32 words, 10 bits per channel, as one
 `pack_bilinear_corners_rgb10`).  On a card the packing and the warp run as
 three hand-written CUDA kernels (csrc/warp.cu: `rgb10_pack_cuda`,
 `warp_fwd_cuda`, which also takes the occlusion test's depth sample, and
-`warp_bwd_cuda`, counted in LAUNCHES; the warp reads the blend's (H, W, B)
-buffers in place); on the CPU as their plain PyTorch versions
+`warp_bwd_cuda`, launched through `_cuda`; the warp reads the blend's
+(H, W, B) buffers in place); on the CPU as their plain PyTorch versions
 (`pack_rgb10_rows`, `warp_views_plain`, `warp_views_bwd_plain`).
 """
 from __future__ import annotations
@@ -30,14 +30,13 @@ import dataclasses
 import torch
 
 from ibgs_tpu_torch.core.camera import Camera, device_scalar
+from ibgs_tpu_torch.ops import _cuda
 from ibgs_tpu_torch.ops.blend_common import BlendOutputs
 from ibgs_tpu_torch.ops.preprocess import to_i32
 from ibgs_tpu_torch.utils import profiling
 
 EPS = 1.0e-8
 RGB10_SCALE = 1023.0
-# kernel launches (counted by the wrappers where they launch)
-LAUNCHES = {"rgb10_pack": 0, "warp_fwd": 0, "warp_bwd": 0}
 # the kernels keep the S transforms in shared memory (48 bytes each)
 MAX_SOURCES = 1024
 
@@ -311,20 +310,10 @@ def _row_stride(bd) -> int:
     return bd.stride(1) if H > 1 else W * B
 
 
-def _launched(name, err):
-    from ibgs_tpu_torch.ops import _cuda
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           f"{_cuda.error_string(err)} ({err})")
-    LAUNCHES[name] += 1
-
-
 def rgb10_pack_cuda(images):
     """`pack_rgb10_rows` of (S, Hs, Ws, 3) contiguous float32 source
-    colours as the CUDA kernel (csrc/warp.cu) on the current stream, one
-    count in LAUNCHES.  Returns (S, Hs, Ws, 4) int32."""
-    from ibgs_tpu_torch.ops import _cuda
-
+    colours as the CUDA kernel (csrc/warp.cu) on the current stream.
+    Returns (S, Hs, Ws, 4) int32."""
     if images.ndim != 4 or images.shape[3] != 3 \
             or images.dtype != torch.float32 or not images.is_contiguous():
         raise ValueError(f"rgb10_pack_cuda: images must be contiguous "
@@ -333,12 +322,9 @@ def rgb10_pack_cuda(images):
     if images.device.type != "cuda":
         raise ValueError(f"rgb10_pack_cuda: images must be on a CUDA "
                          f"device, got {images.device}")
-    dev = images.device
-    out = torch.empty(*images.shape[:3], 4, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = _cuda.rgb10_pack(images, out,
-                               torch.cuda.current_stream(dev).cuda_stream)
-    _launched("rgb10_pack", err)
+    out = torch.empty(*images.shape[:3], 4, dtype=torch.int32,
+                      device=images.device)
+    _cuda.rgb10_pack(images, out)
     return out
 
 
@@ -354,11 +340,8 @@ def rgb10_tables(images):
 def warp_fwd_cuda(bd, bw, tables, r2s, pdx, pdy, median, depths, fx, fy,
                   cx, cy):
     """`warp_views_plain` (same arguments and outputs) as the CUDA forward
-    kernel (csrc/warp.cu) on the current stream, one count in LAUNCHES.
-    bd and bw are read in place as (B, H, W) views of the blend's (H, W,
-    B) buffers."""
-    from ibgs_tpu_torch.ops import _cuda
-
+    kernel (csrc/warp.cu) on the current stream.  bd and bw are read in
+    place as (B, H, W) views of the blend's (H, W, B) buffers."""
     B, H, W = bd.shape
     S, Hs, Ws = tables.shape[:3]
     _check_warp("warp_fwd_cuda", bd, bw, tables, r2s, pdx, pdy,
@@ -367,36 +350,26 @@ def warp_fwd_cuda(bd, bw, tables, r2s, pdx, pdy, median, depths, fx, fy,
     outs = (torch.empty(S, H, W, 3, dtype=torch.float32, device=dev),
             *(torch.empty(S, H, W, dtype=torch.float32, device=dev)
               for _ in range(3)))
-    with torch.cuda.device(dev):
-        err = _cuda.warp_fwd(
-            bd, bw, _row_stride(bd), tables, r2s, pdx, pdy, median, depths,
-            (float(fx), float(fy), float(cx), float(cy)), outs,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _launched("warp_fwd", err)
+    _cuda.warp_fwd(bd, bw, _row_stride(bd), tables, r2s, pdx, pdy, median,
+                   depths, (float(fx), float(fy), float(cx), float(cy)),
+                   outs)
     return outs
 
 
 def warp_bwd_cuda(bd, bw, tables, r2s, pdx, pdy, intr, g_wsc, g_wsum):
     """`warp_views_bwd_plain` (same arguments and outputs) as the CUDA
-    backward kernel (csrc/warp.cu) on the current stream, one count in
-    LAUNCHES.  Writes the gradients in (H, W, B) and returns their (B, H,
-    W) views."""
-    from ibgs_tpu_torch.ops import _cuda
-
+    backward kernel (csrc/warp.cu) on the current stream.  Writes the
+    gradients in (H, W, B) and returns their (B, H, W) views."""
     _check_warp("warp_bwd_cuda", bd, bw, tables, r2s, pdx, pdy,
                 cts=(g_wsc, g_wsum))
     B, H, W = bd.shape
     dev = bd.device
     dbd = torch.empty(H, W, B, dtype=torch.float32, device=dev)
     dbw = torch.empty(H, W, B, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        # autograd may hand an expanded cotangent: copied only then
-        err = _cuda.warp_bwd(
-            bd, bw, _row_stride(bd), tables, r2s, pdx, pdy,
-            tuple(float(v) for v in intr), g_wsc.contiguous(),
-            g_wsum.contiguous(), dbd, dbw,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _launched("warp_bwd", err)
+    # autograd may hand an expanded cotangent: copied only then
+    _cuda.warp_bwd(bd, bw, _row_stride(bd), tables, r2s, pdx, pdy,
+                   tuple(float(v) for v in intr), g_wsc.contiguous(),
+                   g_wsum.contiguous(), dbd, dbw)
     return dbd.permute(2, 0, 1), dbw.permute(2, 0, 1)
 
 

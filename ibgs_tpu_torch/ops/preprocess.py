@@ -12,7 +12,7 @@ Behaviour and float32 op order follow the JAX package:
 
 `preprocess` is one differentiable op (`_Preprocess`): on CUDA tensors
 the two hand-written kernels of csrc/preprocess.cu (`preprocess_fwd_cuda`,
-`preprocess_bwd_cuda`, counted in LAUNCHES), on CPU tensors the plain
+`preprocess_bwd_cuda`, launched through `_cuda`), on CPU tensors the plain
 version `preprocess_plain` and torch autograd of it
 (`preprocess_bwd_plain`).  There is no fallback: a CUDA input the kernels
 do not take raises.  The plain version's sums run left to right, one
@@ -32,12 +32,11 @@ from torch.autograd.function import once_differentiable
 from ibgs_tpu_torch.core import sh as shlib
 from ibgs_tpu_torch.core import transforms as tf
 from ibgs_tpu_torch.core.camera import Camera
+from ibgs_tpu_torch.ops import _cuda
 from ibgs_tpu_torch.utils import profiling
 
 NEAR_CULL_Z = 0.2
 COV2D_DILATION = 0.3
-# kernel launches (counted by the wrappers where they launch)
-LAUNCHES = {"preprocess_fwd": 0, "preprocess_bwd": 0}
 # SH coefficient counts the kernels take (degrees 0..3)
 SH_COEFFS = (1, 4, 9, 16)
 
@@ -359,22 +358,11 @@ def _inputs(xyz, scale, quat, opacity, sh_coeffs, normal, offset,
             ("plane_offset", offset, (P,)), ("alive", alive, (P,))]
 
 
-def _launched(name, err):
-    from ibgs_tpu_torch.ops import _cuda
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           f"{_cuda.error_string(err)} ({err})")
-    LAUNCHES[name] += 1
-
-
 def preprocess_fwd_cuda(xyz, scale, quat, opacity, sh_coeffs,
                         active_sh_degree, plane_normal_world, plane_offset,
                         cam: Camera, tile_h: int, tile_w: int, alive=None):
     """`preprocess_fwd_plain` (same arguments and outputs) as the CUDA
-    forward kernel (csrc/preprocess.cu) on the current stream, one count in
-    LAUNCHES."""
-    from ibgs_tpu_torch.ops import _cuda
-
+    forward kernel (csrc/preprocess.cu) on the current stream."""
     P = xyz.shape[0]
     _check_cuda("preprocess_fwd_cuda", P,
                 _inputs(xyz, scale, quat, opacity, sh_coeffs,
@@ -392,23 +380,18 @@ def preprocess_fwd_cuda(xyz, scale, quat, opacity, sh_coeffs,
             torch.empty(P, 2, dtype=i32, device=dev),
             torch.empty(P, 2, dtype=i32, device=dev),
             torch.empty(P, dtype=i32, device=dev))
-    with torch.cuda.device(dev):
-        err = _cuda.preprocess_fwd(
-            xyz, scale, quat, opacity, sh_coeffs, plane_normal_world,
-            plane_offset, alive, int(active_sh_degree), cam,
-            frustum_limits(cam), tile_h, tile_w, outs,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _launched("preprocess_fwd", err)
+    _cuda.preprocess_fwd(xyz, scale, quat, opacity, sh_coeffs,
+                         plane_normal_world, plane_offset, alive,
+                         int(active_sh_degree), cam, frustum_limits(cam),
+                         tile_h, tile_w, outs)
     return outs
 
 
 def preprocess_bwd_cuda(xyz, scale, quat, sh_coeffs, active_sh_degree,
                         plane_normal_world, plane_offset, cam: Camera, cts):
     """`preprocess_bwd_plain` (same arguments and outputs) as the CUDA
-    backward kernel (csrc/preprocess.cu) on the current stream, one count
-    in LAUNCHES.  The cotangents are read through their strides."""
-    from ibgs_tpu_torch.ops import _cuda
-
+    backward kernel (csrc/preprocess.cu) on the current stream.  The
+    cotangents are read through their strides."""
     P = xyz.shape[0]
     cts = tuple(cts)
     _check_cuda("preprocess_bwd_cuda", P,
@@ -417,13 +400,9 @@ def preprocess_bwd_cuda(xyz, scale, quat, sh_coeffs, active_sh_degree,
     grads = tuple(None if t is None else torch.empty_like(t)
                   for t in (xyz, scale, quat, sh_coeffs, plane_normal_world,
                             plane_offset))
-    dev = xyz.device
-    with torch.cuda.device(dev):
-        err = _cuda.preprocess_bwd(
-            xyz, scale, quat, sh_coeffs, plane_normal_world, plane_offset,
-            int(active_sh_degree), cam, frustum_limits(cam), cts, grads,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _launched("preprocess_bwd", err)
+    _cuda.preprocess_bwd(xyz, scale, quat, sh_coeffs, plane_normal_world,
+                         plane_offset, int(active_sh_degree), cam,
+                         frustum_limits(cam), cts, grads)
     return grads
 
 

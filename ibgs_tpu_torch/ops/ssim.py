@@ -4,7 +4,7 @@
 `_blur`s of 11 shift-and-add taps along H and W, each tap a torch launch)
 on CPU tensors and `ssim_map_cuda` on CUDA ones: one `ssim_fwd` launch a
 call and, where an input needs a gradient, one `ssim_bwd` launch in the
-backward, counted in LAUNCHES.  The map, and every term autograd adds to
+backward, each through `_cuda`.  The map, and every term autograd adds to
 an input's gradient through the plain chain, are the plain chain's bit for
 bit, and autograd adds them in the same order (`_SsimMap`), so a training
 step takes the same gradients as with the plain chain.  There is no
@@ -22,8 +22,8 @@ import functools
 
 import torch
 
-# kernel launches, counted by the wrapper where it launches
-LAUNCHES = {"ssim_fwd": 0, "ssim_bwd": 0}
+from ibgs_tpu_torch.ops import _cuda
+
 _TH = 16                        # the kernels' tile rows (csrc/ssim.cu)
 _I32_MAX = 2 ** 31 - 1
 
@@ -77,24 +77,13 @@ def _check(img1: torch.Tensor, img2: torch.Tensor):
 def _constants():
     """The window as the kernels take it, and C1, C2 (rounded to float32
     where ctypes passes them, as torch rounds a Python scalar)."""
-    from ibgs_tpu_torch.ops import _cuda
     from ibgs_tpu_torch.train import losses
     return _cuda.ssim_window(losses._gauss_window()), losses.C1, losses.C2
-
-
-def _launched(err, name):
-    """Raise on a failed launch, else count it in LAUNCHES."""
-    from ibgs_tpu_torch.ops import _cuda
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           f"{_cuda.error_string(err)} ({err})")
-    LAUNCHES[name] += 1
 
 
 def _forward(img1, img2, moments: bool):
     """The map (img1's shape) and, where `moments`, the five moments (5,
     B, H, W, C), else None."""
-    from ibgs_tpu_torch.ops import _cuda
     shape, b1 = _frames(img1)
     b2 = _frames(img2)[1]
     window, c1, c2 = _constants()
@@ -102,10 +91,7 @@ def _forward(img1, img2, moments: bool):
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     mom = torch.empty((5, *shape), dtype=torch.float32, device=dev) \
         if moments else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _launched(_cuda.ssim_fwd(img1, b1, img2, b2, shape, window, c1, c2,
-                                 out, mom, stream), "ssim_fwd")
+    _cuda.ssim_fwd(img1, b1, img2, b2, shape, window, c1, c2, out, mom)
     return out.view(img1.shape), mom
 
 
@@ -114,7 +100,6 @@ def _backward(img1, img2, g, mom, need1: bool, need2: bool):
     plain chain adds them to each (the cross product's, the square's, the
     mean's; the square's twice): three tensors in the map's shape each, or
     None where not wanted."""
-    from ibgs_tpu_torch.ops import _cuda
     shape, b1 = _frames(img1)
     b2 = _frames(img2)[1]
     window, c1, c2 = _constants()
@@ -126,11 +111,8 @@ def _backward(img1, img2, g, mom, need1: bool, need2: bool):
         return tuple(torch.empty(shape, dtype=torch.float32, device=dev)
                      for _ in range(3)) if need else None
     dx, dy = terms(need1), terms(need2)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _launched(_cuda.ssim_bwd(img1, b1, img2, b2, shape, window, c1, c2,
-                                 g4, strides, mom, dx, dy, stream),
-                  "ssim_bwd")
+    _cuda.ssim_bwd(img1, b1, img2, b2, shape, window, c1, c2, g4, strides,
+                   mom, dx, dy)
     return tuple(None if d is None else tuple(t.view(img1.shape) for t in d)
                  for d in (dx, dy))
 

@@ -26,8 +26,8 @@ Every variant's warp outputs are held to the port's build bit for bit and
 its packed tables to the plain pack of its format (`epilogue.pack_rgb10`
 or `pack_rgb10_rows`); a mismatch fails the probe.  One JSON line per
 (size, repeat, variant) with its ms, registers, spill bytes and CTAs per
-SM.  The launches go straight to the C entries and are not counted in
-epilogue.LAUNCHES.  Needs a CUDA device.
+SM.  The launches go through `_cuda`'s wrappers with the variant's library
+and count in `_cuda.LAUNCHES`.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -124,12 +124,6 @@ def build_variants(variants) -> dict:
     return names
 
 
-def _ok(err: int):
-    if err != 0:
-        raise RuntimeError(f"warp probe launch failed: "
-                           f"{_cuda.error_string(err)} ({err})")
-
-
 def _bits(t):
     return t.view(torch.int32)
 
@@ -148,7 +142,6 @@ def time_variants(names: dict, args, intr, cts, images, iters: int,
     (B, H, W), (S, Hs, Ws) = bd.shape, images.shape[:3]
     rs = epilogue._row_stride(bd)
     intr = tuple(float(v) for v in intr)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     plain_tables = {"rows": epilogue.pack_rgb10_rows(images),
                     "words": epilogue.pack_rgb10(images)}
 
@@ -159,14 +152,13 @@ def time_variants(names: dict, args, intr, cts, images, iters: int,
                 *(torch.empty(S, H, W, device=dev) for _ in range(3)))
         grads = tuple(torch.empty(H, W, B, device=dev) for _ in range(2))
         return packed, (*outs, *grads), {
-            "pack": lambda: _ok(_cuda.rgb10_pack(images, packed, stream,
-                                                 lib)),
-            "fwd": lambda: _ok(_cuda.warp_fwd(
+            "pack": lambda: _cuda.rgb10_pack(images, packed, lib),
+            "fwd": lambda: _cuda.warp_fwd(
                 bd, bw, rs, packed, r2s, pdx, pdy, median, depths, intr,
-                outs, stream, lib)),
-            "bwd": lambda: _ok(_cuda.warp_bwd(
+                outs, lib),
+            "bwd": lambda: _cuda.warp_bwd(
                 bd, bw, rs, packed, r2s, pdx, pdy, intr, g_wsc, g_wsum,
-                *grads, stream, lib))}
+                *grads, lib)}
 
     ref = None
     for variant in [PORT] + [v for v in names if v != PORT]:
@@ -191,7 +183,8 @@ def time_variants(names: dict, args, intr, cts, images, iters: int,
             _, _, fns = calls(variant)
             ms = {k: profiling.wall_ms(fn, iters, 2, dev)
                   for k, fn in fns.items()}
-            info = {k: _cuda.warp_info(kernel, B, S, names[variant])
+            info = {k: _cuda.kernel_info(kernel, B, S,
+                                         source=names[variant])
                     for k, kernel in (("pack", "rgb10_pack"),
                                       ("fwd", "warp_fwd"),
                                       ("bwd", "warp_bwd"))}

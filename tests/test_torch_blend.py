@@ -34,6 +34,7 @@ from ibgs_tpu.ops import blend_oracle as jbo
 from ibgs_tpu.ops import preprocess as jpre
 from ibgs_tpu.ops.blend_common import BlendConfig as JBlendConfig
 from ibgs_tpu.ops.blend_common import Instances
+from ibgs_tpu_torch.ops import _cuda
 from ibgs_tpu_torch.ops import blend as tblend
 from ibgs_tpu_torch.ops.blend_common import BlendConfig
 from tests.test_torch_slice import one_torch_thread  # noqa: F401
@@ -185,12 +186,12 @@ def test_wrapper_dispatch_cpu_takes_plain():
     kernel's launch count does not move."""
     feats, start, stop, Wp, Hp, intr = _instances(7, 60, 32, 32)
     _, tcfg = _cfgs("geo")
-    before = dict(tblend.LAUNCHES)
+    before = dict(_cuda.LAUNCHES)
     out = tblend.blend_packed(
         torch.as_tensor(feats[:, :13]),
         _Bins(torch.as_tensor(start), torch.as_tensor(stop)), Wp, Hp, *intr,
         tcfg)
-    assert tblend.LAUNCHES == before
+    assert _cuda.LAUNCHES == before
     _assert_same({k: getattr(out, k).numpy() for k in FIELDS},
                  _plain(feats, start, stop, Wp, Hp, intr, tcfg))
     with pytest.raises(ValueError):
@@ -351,11 +352,11 @@ def test_bwd_depth_only_is_zero_and_launches_nothing():
     feats, start, stop, Wp, Hp, intr = _instances(4, 80, 32, 32)
     _, tcfg = _cfgs("depth")
     f = torch.as_tensor(feats).requires_grad_(True)
-    before = dict(tblend.LAUNCHES)
+    before = dict(_cuda.LAUNCHES)
     out = tblend.blend_packed(f, _Bins(torch.as_tensor(start),
                                        torch.as_tensor(stop)), Wp, Hp,
                               *intr, tcfg)
     (g,) = torch.autograd.grad((out.buf_depth * out.buf_weight).sum()
                                + out.final_t.sum(), f)
-    assert tblend.LAUNCHES == before
+    assert _cuda.LAUNCHES == before
     assert g.shape == f.shape and float(g.abs().max()) == 0.0

@@ -1,85 +1,68 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
-
-Marked `gpu`; each test skips when no CUDA device is present.  This file
-imports no JAX, so it also runs where JAX is not installed:
+"""The port on the card: its CUDA kernels against their plain PyTorch
+versions, their launches on every path, and the paths and drivers that
+only a card runs.  The one suite of on-card checks; marked `gpu`, each
+test skips without a CUDA device.  It imports no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Forward tolerance: float outputs 1e-5 abs + 1e-5 rel; integer outputs
-exact (the kernel is built without multiply-add contraction, so its float
-ops round as the plain version's do).  Backward tolerance, per gradient
-column: max abs error <= 1e-4 x max |column of the plain version| + 1e-7
-(each per-pixel term rounds as the plain version's, but the sums over a
-tile's 512 pixels are taken in another order); repeat runs bit-identical.
+Forward tolerance: floats 1e-5 abs + 1e-5 rel, integers exact (the
+kernels are built without multiply-add contraction), on the bundle's real
+instances on all but 1e-4 of the pixels.  Backward, per gradient column:
+max abs error <= 1e-4 x the plain column's max + 1e-7 (the sums over a
+tile's pixels run in another order); repeats bit-identical.
 
-Beside random tiles, the cases cover what the kernels' layout adds: a
-skewed tile set (one tile of 4,500 instances beside empty and short ones:
-many staging rounds, two sub-tile CTAs of very different lengths,
-longest-first order), ranges that end inside a batch, bit-identical
-forward repeats, and a backward tile whose warps stop at very different
-positions.
+The blend kernels on random, skewed (a 4,500-instance tile beside empty
+ones) and mid-batch tiles.  The warp kernels (`-k warp`): the pack, the
+occlusion outputs and the backward bit for bit, the colour sums at the
+forward tolerance, on B = 1-12 entries, S = 1 and 5 sources, NaN, out of
+bounds, bands and padded rows.  The projection kernels (`-k preprocess`)
+on tests/torch_preprocess_cases.py, the backward within 2x the float32
+plain version's error against float64.  The binning kernels (`-k bin`)
+and the SSIM kernels (`-k ssim`) bit for bit.  The Tanks and Temples
+frame (`-k tnt`, 960x540, its last tile row 12/16 live).
 
-The warp kernels (csrc/warp.cu) are held to their plain versions: the
-rgb10 pack and the backward bit for bit, the forward's occlusion outputs
-bit for bit (so the `valid` mask is equal at every pixel) and its colour
-sums at the forward tolerance (the B entries are summed in another order),
-non-finite values in the same places; on the (B, H, W) views of seeded
-(H, W, B) buffers of B = 1, 3, 4, 8 and 12 entries (every template
-instantiation: the slots of B <= 4 and B <= 8 and the generic loop) and S
-= 1 and 5 sources smaller and larger than the view, all-zero weights,
-projections wholly out of bounds, NaN source texels (finite outputs: the
-pack maps NaN to 0), a NaN buffer depth and source depth, a band at row0
-272 and buffers with padded rows.
-
-The projection kernels (csrc/preprocess.cu, `-k preprocess`) are held to
-the plain version on the seeded cases of tests/torch_preprocess_cases.py
-(SH degrees 0..3, active degree below the maximum, rgb_override, a band,
-splats behind the camera, at the near plane, dead and nearly transparent,
-one exactly at view z = 0, 200,003 splats): the forward's integer fields
-equal, its float fields at the forward tolerance; the backward, per
-column, within 2x the float32 plain version's error against a float64 run
-of it + 1e-7 of the column's largest value, non-finite values in the
-plain version's places, repeats bit-identical.
-
-The staircase binning kernels (csrc/binning.cu, `-k bin`) are held to the
-plain version bit for bit on every TileBins field, and on pack_rows'
-forward and backward through both: on the seeded cases of
-tests/torch_binning_cases.py (caps cutting inside a Gaussian, a band-local
-grid, no visible splat, one splat, splats clipping every edge, degenerate
-conics, NaN / inf in the cull table, long runs of equal depths and of
-equal tiles) and on the bundle at 1920x1088, full frame and a band at row
-544, without and with caps (12 device events a call there); one
-`bin_splats` launches each kernel once (the radix pass once per digit)
-and makes one blocking host read.
-
-The Tanks and Temples frame (`-k tnt`: the benchmark's `tnt-2m` scene at
-960x540, whose last tile row is 12/16 live): `render_one` with the
-exposure correction on against the benchmark's reference within the 1M
-serve cell's limits; the blend kernels against their plain versions on
-the instances of a geometry render of that frame; the warp kernels
-against theirs at 540 rows with 540-row source tables.
+On the bundle (tests/torch_bundle_inputs.py, the kernel table's inputs in
+chip_smoke.py): every kernel on the real instances and the cotangents of a
+real backward of the training objective at 960x544 and 1920x1088, and on
+the random 1M scene; exact launch counts of each of the 14 kernels per
+served view and per train step (`_cuda.LAUNCHES`); row bands; the
+Gaussian-sharded step at world size 1; the 300-iteration loop with its
+resume, the evaluation path on its model, the CLI with `--gsp_shards 1`,
+the production run at 1M seeds, the suite runner, and the measurement
+drivers (bench, the probes, parse_trace).
 """
+import contextlib
 import dataclasses
+import json
+import math
+import os
 import zlib
 
 import numpy as np
 import pytest
 import torch
 
+from ibgs_tpu_torch.ops import _cuda as cu
 from ibgs_tpu_torch.ops import blend, epilogue
 from ibgs_tpu_torch.ops import preprocess as pre
 from ibgs_tpu_torch.ops.blend_common import BlendConfig
 import torch_binning_cases as bcases
+import torch_bundle_inputs as tbi
 import torch_preprocess_cases as pcases
-
-FIELDS = ("color", "normal", "final_t", "n_contrib", "buf_depth",
-          "buf_weight", "buf_contrib")
-
 
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+# the kernels every render or backward launches, counted on every path
+MAIN = ("blend_fwd", "blend_bwd", "rgb10_pack", "warp_fwd", "warp_bwd",
+        "preprocess_fwd", "preprocess_bwd")
+
+
+def _of(launched, names=MAIN):
+    return {k: launched[k] for k in names if launched.get(k)}
 
 
 def _table(r, mx, my, sx, sy, rho, op):
@@ -133,13 +116,12 @@ def _blend_args(feats, start, stop, tiles_x, tiles_y, cfg, dev):
             tiles_y * cfg.tile_h, 300.0, 310.0, 80.0, 24.0, cfg, 16.0)
 
 
-def _assert_fwd_matches(got, want):
-    for f in FIELDS:
-        a, b = getattr(got, f), getattr(want, f)
-        if a.dtype == torch.int32:
-            assert torch.equal(a, b), f
-        else:
-            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5, msg=f)
+def _blend_cts(Hp, Wp, B, seed, dev):
+    """Seeded cotangents of the five blend outputs a backward reads."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return tuple(torch.randn(s, generator=g).to(dev) for s in
+                 [(Hp, Wp, 3), (Hp, Wp, 3), (Hp, Wp), (Hp, Wp, B),
+                  (Hp, Wp, B)])
 
 
 @pytest.mark.gpu
@@ -152,15 +134,10 @@ def test_kernel_matches_plain(mode, B):
                                            th, tw, 700)
     cfg = BlendConfig(tile_h=th, tile_w=tw, buffer_len=B,
                       render_geo=mode == 1, depth_only=mode == 2)
-    args = (torch.as_tensor(feats, device=dev),
-            torch.as_tensor(start, device=dev),
-            torch.as_tensor(stop, device=dev), tiles_x * tw, tiles_y * th,
-            300.0, 310.0, 80.0, 24.0, cfg, 16.0)
-    before = blend.LAUNCHES["blend_fwd"]
-    got = blend.blend_fwd_cuda(*args)
-    torch.cuda.synchronize()
-    assert blend.LAUNCHES["blend_fwd"] == before + 1
-    _assert_fwd_matches(got, blend.blend_plain(*args))
+    args = _blend_args(feats, start, stop, tiles_x, tiles_y, cfg, dev)
+    got, launched = tbi.launched(lambda: blend.blend_fwd_cuda(*args))
+    assert launched == {"blend_fwd": 1}
+    tbi.assert_fwd_matches(got, blend.blend_plain(*args))
 
 
 @pytest.mark.gpu
@@ -181,8 +158,8 @@ def test_kernel_matches_plain_skewed_and_mid_batch(mode, B, counts):
     got = blend.blend_fwd_cuda(*args)
     again = blend.blend_fwd_cuda(*args)
     torch.cuda.synchronize()
-    _assert_fwd_matches(got, blend.blend_plain(*args))
-    for f in FIELDS:
+    tbi.assert_fwd_matches(got, blend.blend_plain(*args))
+    for f in tbi.FIELDS:
         assert torch.equal(getattr(got, f), getattr(again, f)), f
     if counts is SKEWED and mode != 2:
         # the long tile's pixels walk far into its range
@@ -225,19 +202,8 @@ def _bwd_inputs(mode, B, seed, dev):
             torch.as_tensor(start, device=dev),
             torch.as_tensor(stop, device=dev), Wp, Hp, 300.0, 310.0, 80.0,
             24.0, cfg)
-    saved = blend.blend_fwd_cuda(*args, 16.0)
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    cts = tuple(torch.randn(s, generator=g).to(dev) for s in
-                [(Hp, Wp, 3), (Hp, Wp, 3), (Hp, Wp), (Hp, Wp, B),
-                 (Hp, Wp, B)])
-    return args, saved, cts
-
-
-def _assert_columns_close(got, want):
-    assert bool(torch.isfinite(got).all())
-    err = (got - want).abs().amax(0)
-    tol = 1e-4 * want.abs().amax(0) + 1e-7
-    assert bool((err <= tol).all()), (err, tol)
+    return args, blend.blend_fwd_cuda(*args, 16.0), _blend_cts(Hp, Wp, B,
+                                                               seed, dev)
 
 
 @pytest.mark.gpu
@@ -246,13 +212,11 @@ def _assert_columns_close(got, want):
 def test_bwd_kernel_matches_plain(mode, B):
     dev = _cuda()
     args, saved, cts = _bwd_inputs(mode, B, 7 + mode * 10 + B, dev)
-    before = blend.LAUNCHES["blend_bwd"]
-    got = blend.blend_bwd_cuda(*args, saved, cts, 16.0)
-    again = blend.blend_bwd_cuda(*args, saved, cts, 16.0)
-    torch.cuda.synchronize()
-    assert blend.LAUNCHES["blend_bwd"] == before + 2
+    (got, again), launched = tbi.launched(lambda: [
+        blend.blend_bwd_cuda(*args, saved, cts, 16.0) for _ in range(2)])
+    assert launched == {"blend_bwd": 2}
     want = blend.blend_bwd_plain(*args, saved, cts, 16.0)
-    _assert_columns_close(got, want)
+    tbi.assert_columns_close(got, want)
     assert torch.equal(got, again)
     geo_cols = float(got[:, 9:13].abs().max())
     assert geo_cols > 0 if mode == 1 else geo_cols == 0
@@ -271,15 +235,13 @@ def test_bwd_kernel_matches_plain_skewed_and_mid_batch(mode, counts):
                       render_geo=mode == 1)
     args = _blend_args(feats, start, stop, 3, 2, cfg, dev)
     saved = blend.blend_fwd_cuda(*args)
-    g = torch.Generator(device="cpu").manual_seed(mode)
-    cts = tuple(torch.randn(s, generator=g).to(dev) for s in
-                [(32, 96, 3), (32, 96, 3), (32, 96), (32, 96, 4),
-                 (32, 96, 4)])
+    cts = _blend_cts(32, 96, 4, mode, dev)
     got = blend.blend_bwd_cuda(*args[:-1], saved, cts, 16.0)
     again = blend.blend_bwd_cuda(*args[:-1], saved, cts, 16.0)
     torch.cuda.synchronize()
-    _assert_columns_close(got,
-                          blend.blend_bwd_plain(*args[:-1], saved, cts, 16.0))
+    tbi.assert_columns_close(got,
+                             blend.blend_bwd_plain(*args[:-1], saved, cts,
+                                                   16.0))
     assert torch.equal(got, again)
 
 
@@ -312,14 +274,11 @@ def test_bwd_kernel_warps_stop_at_different_positions(mode):
     saved = blend.blend_fwd_cuda(*args)
     nc = saved.n_contrib
     assert int(nc[0:4, 0:8].max()) == 1 and int(nc[:, 16:32].max()) > 250
-    g = torch.Generator(device="cpu").manual_seed(11)
-    cts = tuple(torch.randn(s, generator=g).to(dev) for s in
-                [(16, 64, 3), (16, 64, 3), (16, 64), (16, 64, 4),
-                 (16, 64, 4)])
+    cts = _blend_cts(16, 64, 4, 11, dev)
     got = blend.blend_bwd_cuda(*args, saved, cts)
     again = blend.blend_bwd_cuda(*args, saved, cts)
     torch.cuda.synchronize()
-    _assert_columns_close(got, blend.blend_bwd_plain(*args, saved, cts))
+    tbi.assert_columns_close(got, blend.blend_bwd_plain(*args, saved, cts))
     assert torch.equal(got, again)
     assert float(got[0].abs().max()) > 0
 
@@ -328,7 +287,6 @@ def test_bwd_kernel_warps_stop_at_different_positions(mode):
 def test_occupancy_query():
     """The kernels' occupancy entries answer for the main path's CTA."""
     _cuda()
-    from ibgs_tpu_torch.ops import _cuda as cu
     for name, modes, limit in (("blend_fwd", (0, 1, 2), blend.FWD_CTA),
                                ("blend_bwd", (0, 1), blend.BWD_CTA)):
         sy, sx = blend.sub_tile_split(16, 32, limit)
@@ -342,14 +300,14 @@ def test_autograd_function_launches_both_kernels():
     dev = _cuda()
     args, saved, cts = _bwd_inputs(1, 4, 3, dev)
     f = args[0].clone().requires_grad_(True)
-    before = dict(blend.LAUNCHES)
-    out = blend.blend_packed(f, _Bins(args[1], args[2]), *args[3:],
-                             row0=16.0)
-    loss = (out.color * cts[0]).sum() + (out.buf_depth * cts[3]).sum()
-    (g,) = torch.autograd.grad(loss, f)
-    torch.cuda.synchronize()
-    assert blend.LAUNCHES["blend_fwd"] == before["blend_fwd"] + 1
-    assert blend.LAUNCHES["blend_bwd"] == before["blend_bwd"] + 1
+
+    def call():
+        out = blend.blend_packed(f, _Bins(args[1], args[2]), *args[3:],
+                                 row0=16.0)
+        loss = (out.color * cts[0]).sum() + (out.buf_depth * cts[3]).sum()
+        return torch.autograd.grad(loss, f)
+    (g,), launched = tbi.launched(call)
+    assert launched == {"blend_fwd": 1, "blend_bwd": 1}
     assert g.shape == f.shape and bool(torch.isfinite(g).all())
 
 
@@ -440,27 +398,6 @@ def _warp_inputs(B, S, case, dev, H=48, W=80):
     return args, (fx, fy, cx, cy), cts, img
 
 
-def _same_bits(a, b):
-    """Bit for bit, NaN in the same places (their payloads aside)."""
-    nan = torch.isnan(a)
-    return torch.equal(nan, torch.isnan(b)) and torch.equal(
-        a[~nan].view(torch.int32), b[~nan].view(torch.int32))
-
-
-def _assert_warp_close(got, want, rel, abs_, per_column):
-    """NaN in the same places; elsewhere |got - want| <= abs_ + rel·|want|
-    (forward) or, per column, <= rel·max|want| + abs_ (backward)."""
-    assert torch.equal(torch.isnan(got), torch.isnan(want))
-    fin = ~torch.isnan(want)
-    err = (got - want).abs()[fin]
-    if per_column:
-        scale = float(want[fin].abs().max()) if fin.any() else 0.0
-        assert (float(err.max()) if err.numel() else 0.0) \
-            <= rel * scale + abs_
-    else:
-        assert bool((err <= abs_ + rel * want[fin].abs()).all())
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,case", WARP_CASES)
 def test_warp_kernels_match_plain(B, S, case):
@@ -475,24 +412,7 @@ def test_warp_kernels_match_plain(B, S, case):
 def _check_warp(B, S, case, dev, H=48, W=80):
     """test_warp_kernels_match_plain's comparisons on `_warp_inputs`."""
     args, intr, cts, images = _warp_inputs(B, S, case, dev, H, W)
-    packed = epilogue.rgb10_pack_cuda(images)
-    k_fwd = epilogue.warp_fwd_cuda(*args, *intr)
-    p_fwd = epilogue.warp_views_plain(*args, *intr)
-    k1 = epilogue.warp_bwd_cuda(*args[:6], intr, *cts)
-    k2 = epilogue.warp_bwd_cuda(*args[:6], intr, *cts)
-    p_bwd = epilogue.warp_views_bwd_plain(*args[:6], intr, *cts)
-    torch.cuda.synchronize()
-    assert torch.equal(packed, args[2])
-    for k, p in zip(k_fwd[:2], p_fwd[:2]):
-        _assert_warp_close(k, p, 1e-5, 1e-5, per_column=False)
-    for k, p in zip(k_fwd[2:], p_fwd[2:]):
-        assert _same_bits(k, p)
-
-    def valid(out):
-        return (out[2] > 0.0) & (out[3] < 0.01)
-    assert torch.equal(valid(k_fwd), valid(p_fwd))
-    for a, b, p in zip(k1, k2, p_bwd):
-        assert a.shape == p.shape and _same_bits(a, p) and _same_bits(a, b)
+    k_fwd, k1 = tbi.assert_warp_pair(args, intr, cts, images)
     nan = [bool(torch.isnan(t).any()) for t in (*k_fwd, *k1)]
     assert any(nan) == (case == "nan_depth")
     if case == "zero_weights":
@@ -513,19 +433,19 @@ def test_warp_function_launches_each_kernel_once():
     args, intr, cts, images = _warp_inputs(4, 5, "larger", dev)
     d = args[0].detach().requires_grad_(True)
     w = args[1].detach().requires_grad_(True)
-    before = dict(epilogue.LAUNCHES)
-    tables = epilogue.rgb10_tables(images)
-    wsc, ws, _, _ = epilogue.warp_views(d, w, tables, *args[3:], *intr)
-    gd, gw = torch.autograd.grad((wsc * cts[0]).sum() + (ws * cts[1]).sum(),
-                                 [d, w])
-    torch.cuda.synchronize()
-    assert {k: epilogue.LAUNCHES[k] - before[k] for k in before} == \
-        {"rgb10_pack": 1, "warp_fwd": 1, "warp_bwd": 1}
+
+    def call():
+        tables = epilogue.rgb10_tables(images)
+        wsc, ws, _, _ = epilogue.warp_views(d, w, tables, *args[3:], *intr)
+        return wsc, ws, *torch.autograd.grad(
+            (wsc * cts[0]).sum() + (ws * cts[1]).sum(), [d, w])
+    (wsc, ws, gd, gw), launched = tbi.launched(call)
+    assert launched == {"rgb10_pack": 1, "warp_fwd": 1, "warp_bwd": 1}
     for k, p in zip((wsc, ws), epilogue.warp_views_plain(*args, *intr)):
-        _assert_warp_close(k, p, 1e-5, 1e-5, per_column=False)
+        tbi.assert_warp_close(k, p, 1e-5, 1e-5, per_column=False)
     for k, p in zip((gd, gw),
                     epilogue.warp_views_bwd_plain(*args[:6], intr, *cts)):
-        assert _same_bits(k, p)
+        assert tbi.same_bits(k, p)
     for fn in (lambda: epilogue.rgb10_pack_cuda(images),
                lambda: epilogue.warp_fwd_cuda(*args, *intr),
                lambda: epilogue.warp_bwd_cuda(*args[:6], intr, *cts)):
@@ -540,7 +460,7 @@ def test_warp_kernels_refuse_bad_inputs():
     count no launch."""
     dev = _cuda()
     args, intr, cts, images = _warp_inputs(4, 5, "larger", dev)
-    before = dict(epilogue.LAUNCHES)
+    before = dict(cu.LAUNCHES)
     bad = [(args[0].double(),) + args[1:],
            (args[0].contiguous(), args[1].contiguous()) + args[2:],
            (args[0], args[1].contiguous()) + args[2:],
@@ -563,7 +483,7 @@ def test_warp_kernels_refuse_bad_inputs():
     for im in (images.double(), images[..., :2], images.transpose(1, 2)):
         with pytest.raises(ValueError):
             epilogue.rgb10_pack_cuda(im)
-    assert epilogue.LAUNCHES == before
+    assert cu.LAUNCHES == before
 
 
 # ------------------------------------------- the projection (preprocess)
@@ -584,40 +504,15 @@ def _pre_inputs(case, dev, n=400):
     return args, t["alive"], torch.as_tensor(table).to(dev), t["rgb"]
 
 
-def _pre_bwd_args(args):
-    """preprocess_bwd_*'s leading arguments from preprocess's."""
-    x, s, q, _, sh, active, n, o, cam = args[:9]
-    return x, s, q, sh, active, n, o, cam
-
-
-def _assert_pre_bwd(k, p32, p64):
-    """Per column: the kernel's max |error| against the float64 plain
-    version at most 2x the float32 plain version's + 1e-7 of the column's
-    largest |value|; non-finite values in the plain version's places."""
-    for a, b, c in zip(k, p32, p64):
-        if a is None:
-            assert b is None
-            continue
-        P = a.shape[0]
-        a2, b2, c2 = (t.reshape(P, -1).double() for t in (a, b, c))
-        assert torch.equal(torch.isfinite(a2), torch.isfinite(b2))
-        fin = torch.isfinite(b2) & torch.isfinite(c2)
-        zero = torch.zeros((), dtype=torch.float64, device=a.device)
-        ek = torch.where(fin, (a2 - c2).abs(), zero).amax(0)
-        ep = torch.where(fin, (b2 - c2).abs(), zero).amax(0)
-        scale = torch.where(fin, c2.abs(), zero).amax(0)
-        assert bool((ek <= 2 * ep + 1e-7 * scale).all()), (ek, ep, scale)
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", PRE_CASES + ["deg2_many"])
 def test_preprocess_kernels_match_plain(case):
     """preprocess_fwd_cuda against preprocess_plain: integer fields equal,
     float fields within 1e-5 abs + 1e-5 rel (NaN in the same places);
     preprocess_bwd_cuda, on the strided cotangents of rasterize's table,
-    against autograd of the plain version by _assert_pre_bwd; two backward
-    runs bit-identical.  `deg2_many` takes 200,003 splats (a ragged last
-    CTA)."""
+    against autograd of the plain version by tbi.assert_pre_bwd_pair; two
+    backward runs bit-identical.  `deg2_many` takes 200,003 splats (a
+    ragged last CTA)."""
     dev = _cuda()
     n = 200_003 if case == "deg2_many" else 400
     args, alive, table, rgb = _pre_inputs(
@@ -647,20 +542,8 @@ def test_preprocess_kernels_match_plain(case):
                       _band(p, pcases.BAND_ROW0, tiles_y, pcases.TILE[0])),):
             for name in names[6:]:
                 assert torch.equal(getattr(a, name), getattr(b, name))
-    cts = pcases.cotangents(table, not override)
-    bargs = _pre_bwd_args(args)
-    k1 = pre.preprocess_bwd_cuda(*bargs, cts)
-    k2 = pre.preprocess_bwd_cuda(*bargs, cts)
-    p32 = pre.preprocess_bwd_plain(*bargs, cts)
-
-    def f64(x):
-        return x.double() if torch.is_tensor(x) else x
-    p64 = pre.preprocess_bwd_plain(*(f64(a) for a in bargs),
-                                   tuple(f64(c) for c in cts))
-    torch.cuda.synchronize()
-    _assert_pre_bwd(k1, p32, p64)
-    for a, b in zip(k1, k2):
-        assert (a is None and b is None) or _same_bits(a, b)
+    k1 = tbi.assert_pre_bwd_pair(tbi.pre_bwd_args(args),
+                                 pcases.cotangents(table, not override))
     nonfinite = any(not bool(torch.isfinite(g).all()) for g in k1
                     if g is not None)
     assert nonfinite == (case == "zero_z")
@@ -678,22 +561,22 @@ def test_preprocess_function_launches_each_kernel_once():
               (args[0], args[1], args[2], args[4], args[6], args[7])]
     full = (leaves[0], leaves[1], leaves[2], args[3], leaves[3], args[5],
             leaves[4], leaves[5], *args[8:])
-    before = dict(pre.LAUNCHES)
-    sp = pre.preprocess(*full, alive=alive)
-    tab = torch.cat([sp.mean2d, sp.conic, sp.opacity[:, None], sp.rgb,
-                     sp.plane_normal, sp.plane_dist[:, None],
-                     torch.zeros(len(table), 2, device=dev)], dim=1)
-    grads = torch.autograd.grad((tab * table).sum(), leaves)
-    torch.cuda.synchronize()
-    assert {k: pre.LAUNCHES[k] - before[k] for k in before} == \
-        {"preprocess_fwd": 1, "preprocess_bwd": 1}
+
+    def call():
+        sp = pre.preprocess(*full, alive=alive)
+        tab = torch.cat([sp.mean2d, sp.conic, sp.opacity[:, None], sp.rgb,
+                         sp.plane_normal, sp.plane_dist[:, None],
+                         torch.zeros(len(table), 2, device=dev)], dim=1)
+        return sp, torch.autograd.grad((tab * table).sum(), leaves)
+    (sp, grads), launched = tbi.launched(call)
+    assert launched == {"preprocess_fwd": 1, "preprocess_bwd": 1}
     assert sp.opacity is args[3]
     ref = pre.preprocess_plain(*args, alive=alive)
     assert torch.equal(sp.radius, ref.radius)
-    bargs = _pre_bwd_args(args)
+    bargs = tbi.pre_bwd_args(args)
     cts = pcases.cotangents(table)
     for g, k in zip(grads, pre.preprocess_bwd_cuda(*bargs, cts)):
-        assert _same_bits(g, k)
+        assert tbi.same_bits(g, k)
     for fn in (lambda: pre.preprocess_fwd_cuda(*args, alive),
                lambda: pre.preprocess_bwd_cuda(*bargs, cts)):
         prof = profiling.device_time(fn, dev)
@@ -706,7 +589,7 @@ def test_preprocess_kernels_refuse_bad_inputs():
     count no launch."""
     dev = _cuda()
     args, alive, table, _ = _pre_inputs("deg2_active1", dev)
-    before = dict(pre.LAUNCHES)
+    before = dict(cu.LAUNCHES)
     bad = [(args[0].double(),) + args[1:],
            (args[0].cpu(),) + args[1:],
            args[:2] + (args[2].t().contiguous().t(),) + args[3:],
@@ -715,14 +598,14 @@ def test_preprocess_kernels_refuse_bad_inputs():
         with pytest.raises(ValueError):
             pre.preprocess_fwd_cuda(*a, alive)
         with pytest.raises(ValueError):
-            pre.preprocess_bwd_cuda(*_pre_bwd_args(a),
+            pre.preprocess_bwd_cuda(*tbi.pre_bwd_args(a),
                                     pcases.cotangents(table))
     with pytest.raises(ValueError):
         pre.preprocess_fwd_cuda(*args, alive.float())
     with pytest.raises(ValueError):
-        pre.preprocess_bwd_cuda(*_pre_bwd_args(args),
+        pre.preprocess_bwd_cuda(*tbi.pre_bwd_args(args),
                                 pcases.cotangents(table.double()))
-    assert pre.LAUNCHES == before
+    assert cu.LAUNCHES == before
 
 
 # ---------------------------------------------- densify, KNN and the loop
@@ -843,14 +726,12 @@ def test_training_loop_on_the_card(tmp_path):
         densify_until_iter=20, single_view_weight_from_iter=14,
         multi_view_weight_from_iter=14, start_color_aggregation_iter=12,
         number_src_frames=2)
-    for k in blend.LAUNCHES:
-        blend.LAUNCHES[k] = 0
-    state, stacks = loop.train(scene, ModelParams(), opt, PipelineParams(),
-                               str(tmp_path), save_iterations=(),
-                               test_iterations=(), log_every=1, quiet=True,
-                               device=dev)
-    torch.cuda.synchronize()
-    assert blend.LAUNCHES == {"blend_fwd": 20, "blend_bwd": 20}
+    (state, stacks), launched = tbi.launched(lambda: loop.train(
+        scene, ModelParams(), opt, PipelineParams(), str(tmp_path),
+        save_iterations=(), test_iterations=(), log_every=1, quiet=True,
+        device=dev))
+    assert _of(launched, ("blend_fwd", "blend_bwd")) == \
+        {"blend_fwd": 20, "blend_bwd": 20}
     with open(tmp_path / "train_log.jsonl") as f:
         log = [json.loads(line) for line in f]
     assert [m["iter"] for m in log] == list(range(1, 21))
@@ -938,15 +819,12 @@ def test_render_split_on_the_card(tmp_path):
                                  device=device)
         ev = EvalRenderer.from_scene(model, None, scene, opt, RasterConfig(),
                                      device)
-        before = blend.LAUNCHES["blend_fwd"]
         out = tmp_path / str(device)
-        fps = render_split(ev, scene.test_cameras, scene.test_images,
-                           scene.test_nearest_ids, str(out),
-                           measure_fps=True, fps_loops=1)
+        fps, launched = tbi.launched(lambda: render_split(
+            ev, scene.test_cameras, scene.test_images,
+            scene.test_nearest_ids, str(out), measure_fps=True, fps_loops=1))
         if device != "cpu":
-            torch.cuda.synchronize()
-            assert blend.LAUNCHES["blend_fwd"] - before \
-                == 3 * 5 * len(scene.test_cameras)
+            assert launched["blend_fwd"] == 3 * 5 * len(scene.test_cameras)
             assert fps > 0
         pngs[str(device)] = {
             p.relative_to(out): image_io.read_png(str(p)).astype(int)
@@ -1030,8 +908,8 @@ def test_band_kernels_match_plain():
         bcfg = cfg.blend_cfg(render_geo=mode == 1, depth_only=mode == 2)
         args = (pr.feats_inst, pr.bins.tile_start, pr.bins.tile_stop, pr.Wp,
                 pr.Hp, cam.fx, cam.fy, cam.cx, cam.cy, bcfg, 64.0)
-        _assert_fwd_matches(blend.blend_fwd_cuda(*args),
-                            blend.blend_plain(*args))
+        tbi.assert_fwd_matches(blend.blend_fwd_cuda(*args),
+                               blend.blend_plain(*args))
 
     recorded, kernel = [], blend.blend_bwd_cuda
 
@@ -1052,20 +930,19 @@ def test_band_kernels_match_plain():
         blend.blend_bwd_cuda = kernel
     *head, saved, cts, row0 = recorded[0]
     assert row0 == 64.0
-    got = blend.blend_bwd_cuda(*head, saved, cts, row0)
-    again = blend.blend_bwd_cuda(*head, saved, cts, row0)
-    _assert_columns_close(got, blend.blend_bwd_plain(*head, saved, cts, row0))
-    assert torch.equal(got, again)
+    tbi.assert_bwd_pair(head, saved, cts, row0)
 
 
 @pytest.mark.gpu
-def test_gsp_step_at_world_size_one_matches_single_chip():
+@pytest.mark.parametrize("scene", ["synthetic", "bundle"])
+def test_gsp_step_at_world_size_one_matches_single_chip(scene, request):
     """`gsp_full_train_step` on a 1 x 1 mesh under NCCL, on its fast path
     (exact caps) and its generic exchange (exchange_cap < cap_local,
     nothing dropped), against the single-chip step: losses within 2e-5
     relative, parameters within 2.05·lr of their group with at most 5% of
     entries over 1e-6 (tests/test_gsp.py's bounds), no overflow; the two
-    paths' results bit-identical."""
+    paths' results bit-identical; each step one launch of every kernel.
+    On the synthetic scene at 64x128 and on the bundle at 960x544."""
     dev = _cuda()
     import copy
 
@@ -1077,11 +954,17 @@ def test_gsp_step_at_world_size_one_matches_single_chip():
     from ibgs_tpu_torch.train import trainer
     from ibgs_tpu_torch.config import OptimizationParams
 
-    state, cam, src, gt = _synthetic_state(dev)
-    opt = OptimizationParams(use_color_aggregation=True, number_src_frames=3,
-                             nb_visible_src_frames=2)
     phase = trainer.StepPhase(render_geo=True, use_aggregation=True)
-    rcfg = RasterConfig()
+    if scene == "bundle":
+        b = request.getfixturevalue("bundle")
+        wh = tbi.SIZES[0]
+        (state, src), cam = b.train_inputs(wh), b.scenes[wh]["cam"]
+        gt, opt, rcfg = b.scenes[wh]["gt"], b.opt, b.rcfg
+    else:
+        state, cam, src, gt = _synthetic_state(dev)
+        opt = OptimizationParams(use_color_aggregation=True,
+                                 number_src_frames=3, nb_visible_src_frames=2)
+        rcfg = RasterConfig()
     args = (13000, torch.zeros(3, device=dev), False, 1.0, 1e-3)
     s1 = copy.deepcopy(state)
     s1, one = trainer.make_train_step(opt, rcfg, s1.net, phase)(
@@ -1096,11 +979,13 @@ def test_gsp_step_at_world_size_one_matches_single_chip():
             st = dataclasses.replace(st, model=gsp.shard_model(st.model, mesh))
             step = gsp.gsp_full_train_step(opt, rcfg, st.net, phase, mesh,
                                            cam.width, cam.height, *caps)
-            out[name] = step(st, sharding._cam_stack([cam]), [0], gt[None],
-                             sharding.stack_sources([src]), *args)
+            out[name], launched = tbi.launched(lambda: step(
+                st, sharding._cam_stack([cam]), [0], gt[None],
+                sharding.stack_sources([src]), *args))
+            assert _of(launched) == tbi.want(1, 1, 1, 1), (name, launched)
     finally:
         dist.destroy_process_group()
-    lrs = lr_tree(trainer.make_lr_config(opt), 13000, 1.0)
+    lrs = lr_tree(trainer.make_lr_config(opt), 13000, state.spatial_lr_scale)
     for name, (st, aux) in out.items():
         assert int(aux["n_overflow"]) == 0 and int(aux["nonfinite_grads"]) == 0
         for k in ("loss", "image_loss", "normal_loss", "agg_loss", "psnr"):
@@ -1120,23 +1005,30 @@ def test_gsp_step_at_world_size_one_matches_single_chip():
                                getattr(getattr(gen, t), f)), (t, f)
 
 
-class _PlainBlend:
-    """Routes the blend and warp wrappers to their plain versions on the
-    card."""
-
-    def __enter__(self):
-        self.kernels = (blend.blend_fwd_cuda, blend.blend_bwd_cuda,
-                        epilogue.rgb10_pack_cuda, epilogue.warp_fwd_cuda,
-                        epilogue.warp_bwd_cuda)
-        blend.blend_fwd_cuda = blend.blend_plain
-        blend.blend_bwd_cuda = blend.blend_bwd_plain
-        epilogue.rgb10_pack_cuda = epilogue.pack_rgb10_rows
-        epilogue.warp_fwd_cuda = epilogue.warp_views_plain
-        epilogue.warp_bwd_cuda = epilogue.warp_views_bwd_plain
-
-    def __exit__(self, *exc):
-        (blend.blend_fwd_cuda, blend.blend_bwd_cuda, epilogue.rgb10_pack_cuda,
-         epilogue.warp_fwd_cuda, epilogue.warp_bwd_cuda) = self.kernels
+@contextlib.contextmanager
+def _plain_kernels():
+    """Routes every kernel wrapper (blend, warp, projection, binning, SSIM)
+    to its plain version, so a run takes its plain path on the card."""
+    from ibgs_tpu_torch.ops import binning
+    from ibgs_tpu_torch.ops import ssim as tssim
+    from ibgs_tpu_torch.train import losses
+    slots = ((blend, "blend_fwd_cuda", blend.blend_plain),
+             (blend, "blend_bwd_cuda", blend.blend_bwd_plain),
+             (epilogue, "rgb10_pack_cuda", epilogue.pack_rgb10_rows),
+             (epilogue, "warp_fwd_cuda", epilogue.warp_views_plain),
+             (epilogue, "warp_bwd_cuda", epilogue.warp_views_bwd_plain),
+             (pre, "preprocess_fwd_cuda", pre.preprocess_fwd_plain),
+             (pre, "preprocess_bwd_cuda", pre.preprocess_bwd_plain),
+             (binning, "bin_staircase_cuda", binning.bin_staircase_plain),
+             (tssim, "ssim_map_cuda", losses.ssim_map_plain))
+    kernels = [getattr(mod, name) for mod, name, _ in slots]
+    for mod, name, plain in slots:
+        setattr(mod, name, plain)
+    try:
+        yield
+    finally:
+        for (mod, name, _), fn in zip(slots, kernels):
+            setattr(mod, name, fn)
 
 
 @pytest.mark.gpu
@@ -1147,13 +1039,24 @@ def test_example_on_the_card_matches_plain():
     from ibgs_tpu_torch.examples import render_synthetic as ex
     scene = ex.grid_scene(device=dev)
     k = ex.render(scene)
-    with _PlainBlend():
+    with _plain_kernels():
         p = ex.render(scene)
     for f in ("render", "median_depth", "normal", "final_t"):
         a, b = getattr(k, f), getattr(p, f)
         assert bool(((a - b).abs() <= 1e-5 + 1e-5 * b.abs()).all()), f
     assert torch.equal(k.n_contrib, p.n_contrib)
     assert bool(torch.isfinite(ex.xyz_grad(scene)).all())
+
+
+def _replays(d, cam, dev):
+    """The replay of snapshot `d` through the kernels and through the
+    plain path: {term: (leaves, screen, rows)} of each."""
+    from ibgs_tpu_torch.scripts import replay_snapshot
+    got = replay_snapshot.replay(d, cam, dev)
+    with _plain_kernels():
+        want = replay_snapshot.replay(d, cam, dev)
+    return [{t: (r["leaves"], r["screen"], r["rows"])
+             for t, r in x["terms"].items()} for x in (got, want)]
 
 
 @pytest.mark.gpu
@@ -1167,7 +1070,6 @@ def test_replay_on_the_card_matches_plain(tmp_path):
     from ibgs_tpu_torch.config import (ModelParams, OptimizationParams,
                                        PipelineParams)
     from ibgs_tpu_torch.data.synthetic import make_synthetic_scene
-    from ibgs_tpu_torch.scripts import replay_snapshot
     from ibgs_tpu_torch.train.loop import train
     scene = make_synthetic_scene(n_views=4, width=64, height=48, n_gt=600,
                                  n_seed=300, eval_every=8, device=dev)
@@ -1182,15 +1084,9 @@ def test_replay_on_the_card_matches_plain(tmp_path):
               PipelineParams(debug=True), str(tmp_path), save_iterations=(),
               test_iterations=(), log_every=1, quiet=True, device=dev)
     d = dict(np.load(tmp_path / "snapshot_fw.npz"))
-    cam = scene.train_cameras[int(d["cam_idx"])]
-    got = replay_snapshot.replay(d, cam, dev)
-    with _PlainBlend():
-        want = replay_snapshot.replay(d, cam, dev)
-    for t in replay_snapshot.TERMS:
-        a, b = got["terms"][t], want["terms"][t]
-        assert (a["leaves"], a["screen"], a["rows"]) == \
-            (b["leaves"], b["screen"], b["rows"]), t
-        assert a["rows"] == [7], t
+    got, want = _replays(d, scene.train_cameras[int(d["cam_idx"])], dev)
+    assert got == want
+    assert all(rows == [7] for _, _, rows in got.values())
 
 
 @pytest.mark.gpu
@@ -1211,11 +1107,10 @@ def test_prod_run_on_the_card_grows(tmp_path):
         multi_view_weight_from_iter=30)
     pl.train["test_iterations"] = (10,)
     scene = train_runs.build_scene(pl)      # renders its ground truth
-    for k in blend.LAUNCHES:
-        blend.LAUNCHES[k] = 0
-    res, state, _, _ = train_runs.run(pl, scene)
-    torch.cuda.synchronize()
-    assert blend.LAUNCHES == {"blend_fwd": 17, "blend_bwd": 10}
+    (res, state, _, _), launched = tbi.launched(lambda: train_runs.run(pl,
+                                                                       scene))
+    assert _of(launched, ("blend_fwd", "blend_bwd")) == \
+        {"blend_fwd": 17, "blend_bwd": 10}
     kinds = {e["event"]: e for e in res["events"]}
     assert kinds["instance_cap"]["old"] == 256
     assert kinds["capacity"]["old"] == 1024
@@ -1287,20 +1182,6 @@ def test_profiler_sessions_keep_every_launch(tmp_path):
 
 # ------------------------------------------------------ staircase binning
 
-BIN_FIELDS = ("order", "rank", "gauss_id", "tile_id", "inst_valid",
-              "tile_start", "tile_stop", "slot", "seg_off")
-
-
-def _assert_bins_equal(k, p):
-    """Every TileBins field of the kernels equal to the plain version's,
-    dtype and shape included, and the two totals."""
-    for f in BIN_FIELDS:
-        a, b = getattr(k, f), getattr(p, f)
-        assert a.dtype == b.dtype and a.shape == b.shape, f
-        assert torch.equal(a, b), f
-    assert (k.n_instances, k.n_rows) == (p.n_instances, p.n_rows)
-
-
 def _assert_pack_rows_equal(k, p, P, dev, seed=0):
     """pack_rows through both TileBins: forward and backward bit for
     bit."""
@@ -1314,16 +1195,8 @@ def _assert_pack_rows_equal(k, p, P, dev, seed=0):
         out = binning.pack_rows(f, bins)
         (grad,) = torch.autograd.grad((out * ct).sum(), f)
         outs.append((out.detach(), grad))
-    assert _same_bits(outs[0][0], outs[1][0])
-    assert _same_bits(outs[0][1], outs[1][1])
-
-
-def _bins_both(sp, cull, grid, cap=0, row_cap=0):
-    from ibgs_tpu_torch.ops import binning
-    TX, TY, TH, TW = grid
-    k = binning.bin_staircase_cuda(sp, TX, TY, cap, cull, TH, TW, row_cap)
-    p = binning.bin_staircase_plain(sp, TX, TY, cap, cull, TH, TW, row_cap)
-    return k, p
+    assert tbi.same_bits(outs[0][0], outs[1][0])
+    assert tbi.same_bits(outs[0][1], outs[1][1])
 
 
 @pytest.mark.gpu
@@ -1338,51 +1211,37 @@ def test_binning_kernels_match_plain(case):
     cap = row_cap = 0
     if case == "caps":
         cap, row_cap = bcases.caps_inside(
-            lambda c, rc: _bins_both(sp, cull, grid, c, rc)[1], sp, cull,
+            lambda c, rc: tbi.bins_both(sp, cull, grid, c, rc)[1], sp, cull,
             *grid)
-    k, p = _bins_both(sp, cull, grid, cap, row_cap)
-    _assert_bins_equal(k, p)
-    _assert_bins_equal(_bins_both(sp, cull, grid, cap, row_cap)[0], k)
+    k, p = tbi.bins_both(sp, cull, grid, cap, row_cap)
+    tbi.assert_bins_equal(k, p)
+    tbi.assert_bins_equal(tbi.bins_both(sp, cull, grid, cap, row_cap)[0], k)
     _assert_pack_rows_equal(k, p, sp.depth.shape[0], dev)
 
 
-def _bundle_splats(dev, band=None):
+def _bundle_splats(bundle, band=None):
     """The bundle's splats at 1920x1088 as `prepare` bins them (16x32
     tiles), on the full frame or on the band-local grid of image rows
     [row0, row0 + rows) for band = (row0, rows)."""
-    from pathlib import Path
-
-    from ibgs_tpu_torch import convert
     from ibgs_tpu_torch.ops import rasterize as ras
-    d = dict(np.load(Path(__file__).resolve().parent.parent
-                     / "bench_bundle.npz"))
-    sc = convert.bundle_scene(d, 1920, 1088, dev)
-    m, cam = sc["model"], sc["cam"]
-    nw, off = m.oriented_normal(cam.cam_pos)
-    TH, TW = 16, 32
-    with torch.no_grad():
-        sp = pre.preprocess(m.params.xyz, m.scale, m.quat_unit, m.opacity,
-                            m.sh_coeffs, m.active_sh_degree, nw, off, cam,
-                            TH, TW, alive=m.alive)
-    TX, TY, row0 = 1920 // TW, 1088 // TH, 0
+    sp, TX, TY, row0 = bundle.preps[tbi.SIZES[1]].sp, 1920 // 32, 1088 // 16, 0
     if band is not None:
-        row0, rows = band
-        TY = rows // TH
-        sp = ras._band(sp, row0, TY, TH)
-    return sp, ras.cull_table(sp, row0), (TX, TY, TH, TW)
+        row0, TY = band[0], band[1] // 16
+        sp = ras._band(sp, row0, TY, 16)
+    return sp, ras.cull_table(sp, row0), (TX, TY, 16, 32)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("band", [None, (544, 272)])
-def test_binning_kernels_match_plain_on_the_bundle(band):
+def test_binning_kernels_match_plain_on_the_bundle(band, bundle):
     """The bundle's 91,307 splats at 1920x1088 (16x32 tiles), on the full
     frame and on a band-local grid at row 544: every TileBins field bit for
     bit without caps and with cap and row_cap both cutting inside a
     Gaussian; pack_rows' forward and backward equal."""
     dev = _cuda()
-    sp, cull, grid = _bundle_splats(dev, band)
-    k, p = _bins_both(sp, cull, grid)
-    _assert_bins_equal(k, p)
+    sp, cull, grid = _bundle_splats(bundle, band)
+    k, p = tbi.bins_both(sp, cull, grid)
+    tbi.assert_bins_equal(k, p)
     assert p.n_instances > 100_000
     _assert_pack_rows_equal(k, p, sp.depth.shape[0], dev)
     from ibgs_tpu_torch.ops import binning
@@ -1394,9 +1253,9 @@ def test_binning_kernels_match_plain_on_the_bundle(band):
     # bin_emit, 2 tile passes (4,080 or 1,020 tiles), bin_ranges
     assert prof.get("device_launches") == 12, prof
     cap, row_cap = bcases.caps_inside(
-        lambda c, rc: _bins_both(sp, cull, grid, c, rc)[1], sp, cull, *grid)
-    k, p = _bins_both(sp, cull, grid, cap, row_cap)
-    _assert_bins_equal(k, p)
+        lambda c, rc: tbi.bins_both(sp, cull, grid, c, rc)[1], sp, cull, *grid)
+    k, p = tbi.bins_both(sp, cull, grid, cap, row_cap)
+    tbi.assert_bins_equal(k, p)
     assert p.rank.shape[0] == cap < p.n_instances
     _assert_pack_rows_equal(k, p, sp.depth.shape[0], dev, seed=1)
 
@@ -1419,7 +1278,7 @@ def test_bin_splats_launches_the_kernels_and_syncs_once():
                                   tile_w=TW, staircase=True)
     call()
     torch.cuda.synchronize()
-    before = dict(binning.LAUNCHES)
+    before = dict(cu.LAUNCHES)
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as seen:
@@ -1430,9 +1289,10 @@ def test_bin_splats_launches_the_kernels_and_syncs_once():
     syncs = [w for w in seen if "synchroniz" in str(w.message)]
     assert len(syncs) == 1, [str(w.message) for w in seen]
     # 128 tiles: one tile sort pass
-    assert {k: binning.LAUNCHES[k] - before[k] for k in before} == \
-        {"bin_key": 1, "bin_radix": 5, "bin_count": 1, "bin_emit": 1,
-         "bin_ranges": 1}
+    assert {k: n - before[k] for k, n in cu.LAUNCHES.items()
+            if n != before[k]} == {"bin_key": 1, "bin_radix": 5,
+                                   "bin_count": 1, "bin_emit": 1,
+                                   "bin_ranges": 1}
     prof = profiling.device_time(call, dev, top=40)
     print("\nbin_splats device events:", prof)
     assert prof.get("device_launches") == 11, prof
@@ -1551,14 +1411,10 @@ def test_tnt_blend_kernels_match_plain_off_the_tile_grid():
             float(fy), float(cx), float(cy), cfg, 0.0)
     got = blend.blend_fwd_cuda(*args)
     want = blend.blend_plain(*args)
-    _assert_fwd_matches(got, want)
-    g = torch.Generator(device="cpu").manual_seed(540)
-    B = cfg.buffer_len
-    cts = tuple(torch.randn(sh, generator=g).to(dev) for sh in
-                [(Hp, Wp, 3), (Hp, Wp, 3), (Hp, Wp), (Hp, Wp, B),
-                 (Hp, Wp, B)])
-    _assert_columns_close(blend.blend_bwd_cuda(*args[:-1], got, cts, 0.0),
-                          blend.blend_bwd_plain(*args[:-1], got, cts, 0.0))
+    tbi.assert_fwd_matches(got, want)
+    cts = _blend_cts(Hp, Wp, cfg.buffer_len, 540, dev)
+    tbi.assert_columns_close(blend.blend_bwd_cuda(*args[:-1], got, cts, 0.0),
+                             blend.blend_bwd_plain(*args[:-1], got, cts, 0.0))
 
 
 @pytest.mark.gpu
@@ -1572,33 +1428,13 @@ def test_tnt_warp_kernels_match_plain_at_540_rows():
 
 SSIM_CASES = {"frame_1080p": (1088, 1920, False),
               "frame_540": (540, 960, False),
-              "stack_1080p": (1088, 1920, True)}
+              "stack_1080p": (1088, 1920, True),
+              "stack_540": (540, 960, True)}
 
 
 def _ssim_inputs(case, dev):
-    """Seeded (img1, img2, map gradient) of an SSIM case: a frame pair, or
-    the train step's stack: the ground truth expanded over 3 sources
-    (batch stride 0) against the masked warps."""
-    H, W, stack = SSIM_CASES[case]
-    g = torch.Generator(device="cpu").manual_seed(zlib.crc32(case.encode()))
-    shape = (3, H, W, 3) if stack else (H, W, 3)
-    a = torch.rand(shape[-3:], generator=g)
-    b = (torch.rand(shape, generator=g) * 0.2 + 0.8 * a).clamp(0, 1)
-    ct = torch.randn(shape, generator=g)
-    a, b, ct = a.to(dev), b.to(dev), ct.to(dev)
-    if stack:
-        a = a[None].expand_as(b)
-    return a, b, ct
-
-
-def _ssim_grads(fn, a, b, ct, need=(True, True)):
-    """The map of fn and the gradients of Σ map·ct w.r.t. the inputs that
-    `need` one."""
-    x = a.detach().requires_grad_(need[0])
-    y = b.detach().requires_grad_(need[1])
-    out = fn(x, y)
-    ins = [t for t in (x, y) if t.requires_grad]
-    return (out.detach(), *torch.autograd.grad((out * ct).sum(), ins))
+    """tbi.ssim_inputs of an SSIM case, seeded by its name."""
+    return tbi.ssim_inputs(*SSIM_CASES[case], dev, zlib.crc32(case.encode()))
 
 
 @pytest.mark.gpu
@@ -1609,32 +1445,18 @@ def test_ssim_kernels_match_plain(case):
     through the plain chain, with both inputs, the first or the second
     needing one (tests/test_torch_ssim_kernels.py gives the reason);
     repeats bit-identical."""
-    from ibgs_tpu_torch.ops import ssim as tssim
-    from ibgs_tpu_torch.train import losses
-    dev = _cuda()
-    a, b, ct = _ssim_inputs(case, dev)
-    with torch.no_grad():
-        assert _same_bits(tssim.ssim_map_cuda(a, b),
-                          losses.ssim_map_plain(a, b))
-    for need in ((True, True), (True, False), (False, True)):
-        k = _ssim_grads(tssim.ssim_map_cuda, a, b, ct, need)
-        p = _ssim_grads(losses.ssim_map_plain, a, b, ct, need)
-        for u, v in zip(k, p):
-            assert _same_bits(u, v), (need, float((u - v).abs().max()))
-    again = _ssim_grads(tssim.ssim_map_cuda, a, b, ct, need)
-    assert all(_same_bits(u, v) for u, v in zip(k, again))
+    tbi.assert_ssim_pair(*_ssim_inputs(case, _cuda()))
 
 
 @pytest.mark.gpu
 def test_ssim_map_launches_once_and_never_syncs():
     """`losses.ssim_map` on CUDA tensors launches ssim_fwd once and, in the
-    backward, ssim_bwd once (counted by LAUNCHES; one device event forward
+    backward, ssim_bwd once (counted in `_cuda`; one device event forward
     under no_grad), and makes no blocking host call
     (torch.cuda.set_sync_debug_mode("warn")); `losses.ssim` and
     `photometric_ssim` go through it."""
     import warnings
 
-    from ibgs_tpu_torch.ops import ssim as tssim
     from ibgs_tpu_torch.train import losses
     from ibgs_tpu_torch.utils import profiling
     dev = _cuda()
@@ -1646,7 +1468,7 @@ def test_ssim_map_launches_once_and_never_syncs():
         return g
     call()
     torch.cuda.synchronize()
-    before = dict(tssim.LAUNCHES)
+    before = dict(cu.LAUNCHES)
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as seen:
@@ -1656,20 +1478,19 @@ def test_ssim_map_launches_once_and_never_syncs():
         torch.cuda.set_sync_debug_mode("default")
     syncs = [w for w in seen if "synchroniz" in str(w.message)]
     assert syncs == [], [str(w.message) for w in syncs]
-    assert {k: tssim.LAUNCHES[k] - before[k] for k in before} == \
-        {"ssim_fwd": 1, "ssim_bwd": 1}
+    assert {k: n - before[k] for k, n in cu.LAUNCHES.items()
+            if n != before[k]} == {"ssim_fwd": 1, "ssim_bwd": 1}
 
     def fwd():
         with torch.no_grad():
             losses.ssim_map(a, b)
     prof = profiling.device_time(fwd, dev)
     assert prof.get("device_launches") == 1, prof
-    before = dict(tssim.LAUNCHES)
     x = a[0].clone().requires_grad_(True)
-    loss = losses.dssim_l1(x, b[0]) + losses.photometric_ssim(a, y).mean()
-    torch.autograd.grad(loss, (x, y))
-    assert {k: tssim.LAUNCHES[k] - before[k] for k in before} == \
-        {"ssim_fwd": 2, "ssim_bwd": 2}
+    _, launched = tbi.launched(lambda: torch.autograd.grad(
+        losses.dssim_l1(x, b[0]) + losses.photometric_ssim(a, y).mean(),
+        (x, y)))
+    assert launched == {"ssim_fwd": 2, "ssim_bwd": 2}
 
 
 def _bundle_train_steps(dev, plain_ssim: bool, steps: int = 3):
@@ -1726,11 +1547,10 @@ def test_bundle_train_step_with_ssim_kernels_matches_plain(tf32_off):
     terms being the plain chain's and added in its order; 3 + 3 SSIM
     launches a step."""
     from benchmark import compare
-    from ibgs_tpu_torch.ops import ssim as tssim
     dev = _cuda()
-    before = dict(tssim.LAUNCHES)
-    k_loss, k_grads, k_change = _bundle_train_steps(dev, False)
-    assert {k: tssim.LAUNCHES[k] - before[k] for k in before} == \
+    (k_loss, k_grads, k_change), launched = tbi.launched(
+        lambda: _bundle_train_steps(dev, False))
+    assert _of(launched, ("ssim_fwd", "ssim_bwd")) == \
         {"ssim_fwd": 9, "ssim_bwd": 9}
     p_loss, p_grads, p_change = _bundle_train_steps(dev, True)
     leaves = compare.moved_leaves(p_grads)
@@ -1740,3 +1560,763 @@ def test_bundle_train_step_with_ssim_kernels_matches_plain(tf32_off):
     print(f"\nbundle steps, kernels against plain SSIM: loss {lg}, grad "
           f"{gg}, step {sg}")
     assert lg[0] == gg[0] == sg[0] == 0.0, (lg, gg, sg)
+
+
+# ------------------------------------------------- the bundle and the paths
+
+@pytest.fixture(scope="module")
+def bundle():
+    """The kernels' inputs on the bundle at 960x544 and 1920x1088
+    (tests/torch_bundle_inputs.py), built once."""
+    return tbi.bundle_inputs(_cuda())
+
+
+def _geo_steps(opt, n_train, first, last):
+    """Render_geo steps among the loop's iterations first..last."""
+    geo_from = opt.single_view_weight_from_iter - 2 * n_train
+    return max(0, last - max(first - 1, geo_from))
+
+
+def _read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _randn_like(ts, seed):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(t.shape, generator=g).to(t.device) for t in ts)
+
+
+@pytest.mark.gpu
+def test_blend_kernels_match_plain_on_the_bundle(bundle):
+    """On the bundle's instances at 960x544: the blend forward in every
+    mode against plain; the backward in render_geo and colour mode on the
+    cotangents of a real backward of the training objective and on seeded
+    ones, repeats bit-identical; the binning kernels bit for bit."""
+    from ibgs_tpu_torch.ops.rasterize import cull_table
+    wh = tbi.SIZES[0]
+    pr, cam = bundle.preps[wh], bundle.scenes[wh]["cam"]
+    for mode in (0, 1, 2):
+        cfg = bundle.rcfg.blend_cfg(render_geo=mode == 1,
+                                    depth_only=mode == 2)
+        args = (pr.feats_inst, pr.bins.tile_start, pr.bins.tile_stop, pr.Wp,
+                pr.Hp, cam.fx, cam.fy, cam.cx, cam.cy, cfg)
+        tbi.assert_fwd_matches(blend.blend_fwd_cuda(*args),
+                               blend.blend_plain(*args), int_share=1e-4)
+    for mode in (1, 0):
+        *head, saved, cts, row0 = bundle.captured[(wh, mode)][0]
+        for c in (cts, _randn_like(cts, 1234 + mode)):
+            tbi.assert_bwd_pair(head, saved, c, row0)
+    grid = (pr.Wp // bundle.rcfg.tile_w, pr.Hp // bundle.rcfg.tile_h,
+            bundle.rcfg.tile_h, bundle.rcfg.tile_w)
+    tbi.assert_bins_equal(*tbi.bins_both(pr.sp, cull_table(pr.sp), grid))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wh", tbi.SIZES, ids=lambda wh: "%dx%d" % wh)
+def test_warp_and_projection_kernels_match_plain_on_the_bundle(bundle, wh):
+    """On the inputs and cotangents of a real render_geo backward of the
+    training objective, and on seeded cotangents: the warp kernels by
+    test_warp_kernels_match_plain's comparisons (the pack equal to the
+    recorded tables), the projection kernels by
+    test_preprocess_kernels_match_plain's."""
+    _, (wa, intr, cts, images), pre_args, pre_cts = \
+        bundle.captured[(wh, 1)]
+    tbi.assert_warp_pair(wa, intr, cts, images)
+    tbi.assert_warp_pair(wa, intr, _randn_like(cts, 4321))
+    tbi.assert_pre_fwd(pre_args)
+    for c in (pre_cts, tbi.table_cts(pre_args[0].shape[0], images.device)):
+        tbi.assert_pre_bwd_pair(tbi.pre_bwd_args(pre_args), c)
+
+
+@pytest.mark.gpu
+def test_projection_and_binning_kernels_match_plain_on_the_1m_scene():
+    """The random scene of 1M splats in 1,310,720 slots at 960x544: the
+    projection kernels against plain (seeded cotangents as slices of a
+    (P, 15) table) and the binning kernels bit for bit."""
+    from ibgs_tpu_torch.ops.rasterize import cull_table
+    dev = _cuda()
+    args = tbi.preprocess_args(*tbi.random_scene(dev, (960, 544)), True, 16,
+                               32)
+    tbi.assert_pre_fwd(args)
+    tbi.assert_pre_bwd_pair(tbi.pre_bwd_args(args),
+                            tbi.table_cts(args[0].shape[0], dev))
+    with torch.no_grad():
+        sp = pre.preprocess(*args)
+    k, p = tbi.bins_both(sp, cull_table(sp), (30, 34, 16, 32))
+    tbi.assert_bins_equal(k, p)
+    assert p.n_instances > 1_000_000
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wh", tbi.SIZES, ids=lambda wh: "%dx%d" % wh)
+def test_served_view_launches_each_kernel_exactly(bundle, wh):
+    """`render_one` of the bundle view: finite, and exactly five renders
+    (four source depths, one render_geo view) projected, binned and
+    blended, one pack and one warp forward, no backward, no SSIM."""
+    out, launched, want = tbi.served_view(bundle, wh)
+    assert launched == want and tbi.finite(out)
+
+
+@pytest.mark.gpu
+def test_train_steps_launch_each_kernel_exactly(bundle):
+    """Ten render_geo + aggregation steps of the bundle at 960x544, each
+    one launch of every kernel and three SSIM maps with their backward,
+    finite, no non-finite gradient, the loss falling; one colour-only step
+    (iteration 5,000): no pack or warp, one SSIM map."""
+    steps = tbi.train_steps(bundle, 10)
+    for k, (_, ok, launched, want) in enumerate(steps):
+        assert ok and launched == want, (k, launched)
+    assert steps[9][0] < steps[0][0]
+
+
+@pytest.mark.gpu
+def test_bands_on_the_bundle_match_the_full_frame(bundle):
+    """2 bands of 272 rows at 960x544 and 4 at 1920x1088 through
+    `rasterize`'s viewport band with the warp, stitched against the full
+    frame (rtol 1e-5, atol 1e-6; n_contrib exact), one launch of each
+    forward kernel a band and a frame; on the last 960x544 band with a
+    backward, the blend and warp kernels against their plain versions on
+    its recorded arguments, the warp's rays from image row 272."""
+    from ibgs_tpu_torch.models.gaussians import PARAM_FIELDS
+    from ibgs_tpu_torch.ops.rasterize import prepare, rasterize
+    b = bundle
+    srcs = {wh: b.train_inputs(wh)[1] for wh in tbi.SIZES}
+
+    def render(model, wh, row0=None, rows=None):
+        cam = b.scenes[wh]["cam"]
+        nw, off = model.oriented_normal(cam.cam_pos,
+                                        learnt=b.opt.learnt_normal)
+        return rasterize(
+            xyz=model.params.xyz, scale=model.scale, quat=model.quat_unit,
+            opacity=model.opacity, sh_coeffs=model.sh_coeffs,
+            active_sh_degree=model.active_sh_degree, normal_world=nw,
+            plane_offset=off, cam=cam, bg=b.bg, cfg=b.rcfg,
+            src=srcs[wh], alive=model.alive, render_geo=True,
+            viewport_row0=row0, viewport_rows=rows)
+
+    for wh in tbi.SIZES:
+        model, n = b.scenes[wh]["model"], wh[1] // 272
+        with torch.no_grad():
+            full, launched = tbi.launched(lambda: render(model, wh))
+            assert _of(launched) == tbi.want(1, warps=1)
+            bands, launched = tbi.launched(lambda: [
+                render(model, wh, k * 272, 272) for k in range(n)])
+        assert _of(launched) == tbi.want(n, warps=n)
+        for f in ("render", "final_t", "median_depth"):
+            torch.testing.assert_close(
+                torch.cat([getattr(x, f) for x in bands]), getattr(full, f),
+                rtol=1e-5, atol=1e-6)
+        assert torch.equal(torch.cat([x.n_contrib for x in bands]),
+                           full.n_contrib)
+    wh, row0 = tbi.SIZES[0], 272
+    model, cam = b.scenes[wh]["model"], b.scenes[wh]["cam"]
+    leaves = dataclasses.replace(model, params=type(model.params)(**{
+        k: getattr(model.params, k).detach().requires_grad_(True)
+        for k in PARAM_FIELDS}))
+    with tbi.recording() as seen:
+        res = render(leaves, wh, row0, 272)
+        torch.autograd.grad(res.render.sum() + (res.median_depth ** 2).mean()
+                            + res.ibr.warped_image.abs().mean(),
+                            [leaves.params.xyz, leaves.params.sh_dc])
+    nw, off = model.oriented_normal(cam.cam_pos, learnt=b.opt.learnt_normal)
+    pr = prepare(xyz=model.params.xyz, scale=model.scale,
+                 quat=model.quat_unit, opacity=model.opacity,
+                 sh_coeffs=model.sh_coeffs,
+                 active_sh_degree=model.active_sh_degree, normal_world=nw,
+                 plane_offset=off, cam=cam, cfg=b.rcfg, alive=model.alive,
+                 viewport_row0=row0, viewport_rows=272)
+    for mode in (0, 1, 2):
+        cfg = b.rcfg.blend_cfg(render_geo=mode == 1, depth_only=mode == 2)
+        args = (pr.feats_inst, pr.bins.tile_start, pr.bins.tile_stop, pr.Wp,
+                pr.Hp, cam.fx, cam.fy, cam.cx, cam.cy, cfg, row0)
+        tbi.assert_fwd_matches(blend.blend_fwd_cuda(*args),
+                               blend.blend_plain(*args), int_share=1e-4)
+    *head, saved, cts, r0 = seen["blend_bwd"][0]
+    assert r0 == row0
+    saved = type(saved)(*(getattr(saved, f).detach() for f in tbi.FIELDS))
+    head[0], cts = head[0].detach(), tuple(c.detach() for c in cts)
+    tbi.assert_bwd_pair(head, saved, cts, r0)
+    wa, intr, wcts = tbi.warp_args(seen["warp_fwd"][0], seen["warp_bwd"][0])
+    assert len(seen["warp_fwd"]) == 1
+    assert abs(float(wa[5][0, 0]) * intr[1] + intr[3] - row0) <= 1e-3
+    tbi.assert_warp_pair(wa, intr, wcts, seen["rgb10_pack"][0][0])
+
+
+# the loop's cut of the schedule on the bundle's 5 views: colour-only to
+# 110, aggregation from 151, densify at 100, 150 and 200, the opacity
+# reset at 200; an evaluation, a PLY and a checkpoint at 300
+LOOP_SCHEDULE = dict(
+    iterations=300, position_lr_max_steps=300, densify_from_iter=50,
+    densification_interval=50, densify_until_iter=250,
+    opacity_reset_interval=200, single_view_weight_from_iter=120,
+    multi_view_weight_from_iter=120, start_color_aggregation_iter=150,
+    color_aggregate_burnin_steps=50)
+LOOP_PROFILE = (60, 10)            # traced colour-only iterations (from, n)
+
+
+@pytest.fixture(scope="module")
+def bundle_loop(tmp_path_factory):
+    """`train/loop.train` on the bundle's 5 views at 960x544 from its
+    91,307 splat centres, LOOP_SCHEDULE with a trace window at
+    LOOP_PROFILE, then a resume from its checkpoint for iteration 301;
+    each run's launches."""
+    from ibgs_tpu_torch import convert
+    from ibgs_tpu_torch.config import (ModelParams, OptimizationParams,
+                                       PipelineParams)
+    from ibgs_tpu_torch.train import loop
+    dev = _cuda()
+    d = dict(np.load(tbi.BUNDLE))
+    scene = convert.bundle_train_scene(d, 960, 544, dev)
+    out = str(tmp_path_factory.mktemp("loop"))
+    opt = OptimizationParams(**LOOP_SCHEDULE)
+    (state, _), run = tbi.launched(lambda: loop.train(
+        scene, ModelParams(sh_degree=2), opt, PipelineParams(
+            profile_from_iter=LOOP_PROFILE[0],
+            profile_num_steps=LOOP_PROFILE[1]),
+        out, save_iterations=(300,), test_iterations=(300,),
+        checkpoint_iterations=(300,), quiet=True, seed=24, log_every=1,
+        device=dev))
+    (_, stacks), resume = tbi.launched(lambda: loop.train(
+        scene, ModelParams(sh_degree=2),
+        OptimizationParams(**dict(LOOP_SCHEDULE, iterations=301)),
+        PipelineParams(), os.path.join(out, "resume"), save_iterations=(),
+        test_iterations=(), start_checkpoint=os.path.join(
+            out, "chkpnt300.npz"), quiet=True, seed=24, log_every=1,
+        device=dev))
+    return dict(d=d, scene=scene, out=out, opt=opt, state=state, run=run,
+                resume=resume, stacks=stacks)
+
+
+@pytest.mark.gpu
+def test_loop_on_the_bundle_and_its_resume(bundle_loop):
+    """The native KNN against the device KNN on the seed cloud (4 float32
+    ulps of max |p|²); the run: every iteration logged, finite, a densify
+    event that changes the alive count, the image loss falling (last 20
+    against first 20), exactly the launches its schedule implies, SSIM
+    launched, a PLY, a trace window that kept every device event with less
+    device time a step than a colour step's wall time, a checkpoint that
+    reloads bit-exact; the resume: iteration 301 alone, finite, the depth
+    cache rebuilt for every view, its launches."""
+    from ibgs_tpu_torch.core import knn
+    from ibgs_tpu_torch.train import checkpoint, loop
+    from ibgs_tpu_torch.utils import native, profiling
+    r = bundle_loop
+    pts, n_train, out = r["scene"].points, r["scene"].n_train, r["out"]
+    d2 = knn.mean_sq_dist_to_3nn(torch.as_tensor(pts).to("cuda")).cpu()
+    np.testing.assert_allclose(
+        d2.numpy(), native.knn_mean_sq_dist_3(pts), rtol=0,
+        atol=4 * float(np.finfo(np.float32).eps) * float(
+            (pts ** 2).sum(1).max()))
+    log = _read_jsonl(os.path.join(out, "train_log.jsonl"))
+    events = _read_jsonl(os.path.join(out, "densify_log.jsonl"))
+    assert [m["iter"] for m in log] == list(range(1, 301))
+    assert all(m["nonfinite_grads"] == 0 and all(
+        math.isfinite(m[k]) for k in loop.LOSS_KEYS) for m in log)
+    assert any(e["n_alive_after"] != e["n_alive_before"] for e in events)
+    assert np.mean([m["image_loss"] for m in log[-20:]]) < np.mean(
+        [m["image_loss"] for m in log[:20]])
+    geo = _geo_steps(r["opt"], n_train, 1, 300)
+    assert _of(r["run"]) == tbi.want(300 + 5, 300, geo + 5, geo)
+    assert r["run"].get("ssim_fwd") and r["run"].get("ssim_bwd")
+    assert os.path.exists(os.path.join(out, "point_cloud", "iteration_300",
+                                       "point_cloud.ply"))
+    with open(os.path.join(out, "trace", "trace.json")) as f:
+        dev_events, lost = profiling.device_events(
+            json.load(f).get("traceEvents", []))
+    by_it = {m["iter"]: m for m in log}
+    p0, pn = LOOP_PROFILE
+    colour_ms = sorted((by_it[i]["elapsed"] - by_it[i - 1]["elapsed"]) * 1e3
+                       for i in range(p0 + pn + 1, 100))
+    assert dev_events and not lost
+    assert sum(e.get("dur", 0) for e in dev_events) / 1e3 / pn \
+        <= colour_ms[len(colour_ms) // 2]
+    loaded, it = checkpoint.load_state(r["state"],
+                                       os.path.join(out, "chkpnt300.npz"))
+    a, b = (checkpoint.state_arrays(s) for s in (r["state"], loaded))
+    assert it == 300 and sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes()
+        for k in a)
+    rlog = _read_jsonl(os.path.join(out, "resume", "train_log.jsonl"))
+    assert [m["iter"] for m in rlog] == [301]
+    assert all(math.isfinite(rlog[0][k]) for k in loop.LOSS_KEYS)
+    assert rlog[0]["nonfinite_grads"] == 0
+    geo = _geo_steps(r["opt"], n_train, 301, 301)
+    assert _of(r["resume"]) == tbi.want(1 + n_train, 1, geo, geo)
+    assert int((r["stacks"]["depths"].flatten(1).amax(1) > 0).sum()) \
+        == n_train
+
+
+@pytest.mark.gpu
+def test_eval_path_on_the_loop_model(bundle_loop, monkeypatch):
+    """On the loop's model directory, the bundle view as the test view:
+    `render.render_model` (the test split with FPS, the train views, the
+    TSDF mesh at a voxel of the bounds' largest extent / 256): every PNG
+    written, each decoding to the truncated float image it was written
+    from, all finite; the card's TSDF against the CPU's integration of the
+    same inputs (1e-5 on all but 1e-4 of the voxels), a non-empty finite
+    mesh; `metrics.evaluate_model_dir` (LPIPS null, SSIM on the card
+    within 1e-5 of the CPU's); 12 video frames; one viewer frame intact
+    over a loopback socket; exactly the forward launches these imply, no
+    backward; eval_geometry's chamfer of the mesh against itself 0 and
+    against a copy shifted by 1e-4 along x within 1%."""
+    import socket
+    import struct
+    import threading
+    import time
+    from collections import Counter
+
+    from ibgs_tpu_torch import convert
+    from ibgs_tpu_torch import render as render_cli
+    from ibgs_tpu_torch.config import ModelParams, PipelineParams
+    from ibgs_tpu_torch.eval import render_driver, tsdf, video, viewer
+    from ibgs_tpu_torch.eval.metrics import evaluate_model_dir, ssim
+    from ibgs_tpu_torch.ops.rasterize import RasterConfig
+    from ibgs_tpu_torch.renderer import render_view, source_views_from_stacks
+    from ibgs_tpu_torch.scripts import eval_geometry
+    from ibgs_tpu_torch.utils import image_io
+    dev, r, total = _cuda(), bundle_loop, Counter()
+    model_dir, opt, mp = r["out"], r["opt"], ModelParams(sh_degree=2)
+    pipe = PipelineParams()
+    scene = convert.bundle_eval_scene(r["d"], 960, 544, dev)
+    written, fused, save = {}, {"inputs": []}, render_driver._save_png
+
+    def save_png(path, img):
+        a = img.detach().cpu().numpy() if torch.is_tensor(img) \
+            else np.asarray(img)
+        written[path] = (bool(np.isfinite(a).all()),
+                         (np.clip(a, 0, 1) * 255).astype(np.uint8))
+        save(path, img)
+
+    class Volume(tsdf.TSDFVolume):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            fused.update(volume=self, args=(a, kw))
+
+        def integrate(self, *a, **kw):
+            fused["inputs"].append([x.detach().cpu().numpy()
+                                    if torch.is_tensor(x) else np.array(x)
+                                    for x in a])
+            super().integrate(*a, **kw)
+    monkeypatch.setattr(render_driver, "_save_png", save_png)
+    monkeypatch.setattr(tsdf, "TSDFVolume", Volume)
+    res, launched = tbi.launched(lambda: render_cli.render_model(
+        scene, mp, opt, pipe, model_dir, 300, render_geo=True,
+        voxel_size=float(np.ptp(scene.points, 0).max()) * 1.4 / 256,
+        use_depth_filter=True, src_image_ext="png", device=dev))
+    monkeypatch.undo()
+    total.update(launched)
+    n_test, n_train = len(scene.test_cameras), scene.n_train
+    for split, n in (("test", n_test), ("train", n_train)):
+        for sub in ("renders", "renders_aggregate", "gt", "depth", "normal"):
+            assert len(os.listdir(os.path.join(model_dir, split, "ours_300",
+                                               sub))) == n, (split, sub)
+    assert written and all(fin and np.array_equal(image_io.read_image(p), w)
+                           for p, (fin, w) in written.items())
+    assert all(math.isfinite(res[k]) for k in ("fps", "model_mb", "memory"))
+    kw = dict(fused["args"][1], device="cpu")
+    cpu, vol = tsdf.TSDFVolume(*fused["args"][0], **kw), fused["volume"]
+    for a in fused["inputs"]:
+        cpu.integrate(*a)
+    off = ((vol.tsdf.cpu() - cpu.tsdf).abs() > 1e-5) \
+        | ((vol.color.cpu() - cpu.color).abs() > 1e-5).any(-1)
+    off = (off & (cpu.weight > 0)) | (vol.weight.cpu() != cpu.weight)
+    assert int(off.sum()) <= 1e-4 * cpu.weight.numel()
+    mesh = os.path.join(model_dir, "mesh.ply")
+    verts, faces = tsdf.load_mesh_ply(mesh)
+    assert len(faces) and np.isfinite(verts).all()
+
+    scores, launched = tbi.launched(lambda: evaluate_model_dir(model_dir,
+                                                              device=dev))
+    total.update(launched)
+    assert sorted(scores) == ["ours_300/renders",
+                              "ours_300/renders_aggregate"]
+    assert all(v["lpips"] is None for v in scores.values())
+    base = os.path.join(model_dir, "test", "ours_300")
+    for split in ("renders", "renders_aggregate"):
+        for nm in os.listdir(os.path.join(base, split)):
+            im, gt = ((image_io.read_image(os.path.join(base, s, nm))
+                       / 255.0).astype(np.float32) for s in (split, "gt"))
+            assert abs(ssim(im, gt, dev) - ssim(im, gt, "cpu")) <= 1e-5
+
+    model, _ = render_cli.model_from_ply(os.path.join(
+        model_dir, "point_cloud", "iteration_300", "point_cloud.ply"),
+        mp.sh_degree, dev)
+    rcfg = RasterConfig(buffer_len=opt.buffer_length,
+                        depth_error_threshold=opt.depth_error_threshold,
+                        staircase_cull=pipe.staircase_cull)
+    ev = render_driver.EvalRenderer.from_scene(
+        model, render_cli.restore_net(model, opt, model_dir, dev)[0], scene,
+        opt, rcfg, dev)
+    vpath, launched = tbi.launched(lambda: video.render_video(
+        ev, os.path.join(model_dir, "video.mp4"), n_frames=12))
+    total.update(launched)
+    if os.path.isdir(vpath):               # the PNG sequence (no cv2)
+        assert len(os.listdir(vpath)) == 12
+    else:                                  # cv2 wrote an mp4
+        import cv2
+        assert int(cv2.VideoCapture(vpath).get(cv2.CAP_PROP_FRAME_COUNT)) \
+            == 12
+
+    wvt = scene.test_cameras[0].view.cpu().numpy().astype(np.float64).T
+    wvt[:, 1:3] *= -1.0
+    msg = json.dumps(dict(
+        resolution_x=960, resolution_y=544, train=True, keep_alive=True,
+        fov_x=float(r["d"]["fovx"]), fov_y=float(r["d"]["fovy"]),
+        z_near=0.01, z_far=100.0, scaling_modifier=1.0,
+        view_matrix=wvt.reshape(-1).tolist(),
+        view_projection_matrix=np.eye(4).reshape(-1).tolist())).encode()
+    port, reply, frame = viewer.init(port=0), {}, {}
+
+    def client():
+        with socket.create_connection(("127.0.0.1", port), timeout=30) as c:
+            c.sendall(struct.pack("<i", len(msg)) + msg)
+            f = c.makefile("rb")
+            img = f.read(960 * 544 * 3)
+            (n,) = struct.unpack("<i", f.read(4))
+            reply.update(image=img, verify=f.read(n).decode())
+
+    def render_fn(cam, msg):
+        # the training loop's viewer render: sources off
+        st = ev.stacks
+        src = source_views_from_stacks(
+            st["images"], torch.zeros_like(st["images"][..., 0]), st["w2v"],
+            st["centers"], torch.zeros(rcfg.max_src, dtype=torch.long,
+                                       device=dev), 0, cam)
+        img = render_view(model, cam, rcfg, torch.zeros(3, device=dev),
+                          src=src, learnt_normal=opt.learnt_normal,
+                          return_depth_normal=False)[0].render
+        frame["bytes"] = (np.clip(img.cpu().numpy(), 0, 1) * 255).astype(
+            np.uint8).tobytes()
+        return img
+
+    thread = threading.Thread(target=client, daemon=True)
+
+    def serve():
+        thread.start()
+        t0 = time.perf_counter()
+        while "bytes" not in frame and time.perf_counter() - t0 < 30:
+            viewer.serve_once(render_fn, verify="ok", device=dev)
+            time.sleep(0.001)
+        thread.join(timeout=30)
+    try:
+        total.update(tbi.launched(serve)[1])
+    finally:
+        viewer.shutdown()
+    assert not thread.is_alive() and reply.get("verify") == "ok"
+    assert reply.get("image") == frame.get("bytes")
+    # each view: its sources' depths and one render_geo render with the
+    # warp (FPS: 5 timed passes and a warm-up of the test view; its PNG
+    # pass; the train views twice: PNGs and TSDF; the video); the viewer
+    # frame: one render_geo render
+    views = (5 + 1) * n_test + n_test + 2 * n_train + 12
+    assert _of(total) == tbi.want((opt.number_src_frames + 1) * views + 1,
+                                  warps=views + 1)
+    assert total["ssim_fwd"] > 0
+
+    shifted = os.path.join(model_dir, "mesh_shifted.ply")
+    tsdf.save_mesh_ply(shifted, verts + np.array([1e-4, 0.0, 0.0],
+                                                 np.float32), faces)
+    same, moved = (eval_geometry.main(["chamfer", "--mesh", m, "--gt", mesh,
+                                       "--downsample", "0"])
+                   for m in (mesh, shifted))
+    assert same["overall"] == 0.0 and abs(moved["overall"] - 1e-4) <= 1e-6
+
+
+# the CLI's cut of the schedule: densify at 20 and 40, the opacity reset
+# at 40 (which 40 Adam steps do not undo: the PSNR is held to rise on each
+# side of it), geometry from 36, aggregation from 61, PLY and checkpoint 80
+GSP_LOOP_SCHEDULE = dict(
+    iterations=80, position_lr_max_steps=80, densify_from_iter=10,
+    densification_interval=20, densify_until_iter=45,
+    opacity_reset_interval=40, single_view_weight_from_iter=45,
+    multi_view_weight_from_iter=45, start_color_aggregation_iter=60,
+    color_aggregate_burnin_steps=10)
+
+
+@pytest.mark.gpu
+def test_train_cli_with_gsp_shards_1_on_the_bundle(bundle, tmp_path,
+                                                   monkeypatch, capsys):
+    """`python -m ibgs_tpu_torch.train --gsp_shards 1` in process on the
+    bundle's 5 views (GSP_LOOP_SCHEDULE): exit 0, finite, the evaluation
+    PSNR rising from 1 to 39 and from 41 to 80, exactly the launches the
+    schedule implies, densify through gsp_densify_fn, the checkpoint
+    reloading bit-exact, finite, its alive rows the PLY's."""
+    import re
+
+    from ibgs_tpu_torch import convert
+    from ibgs_tpu_torch.config import OptimizationParams
+    from ibgs_tpu_torch.data import dataset, ply
+    from ibgs_tpu_torch.train import __main__ as train_cli
+    from ibgs_tpu_torch.train import checkpoint, trainer
+    dev = _cuda()
+    scene = convert.bundle_train_scene(bundle.d, 960, 544, dev)
+    monkeypatch.setattr(dataset, "load_scene", lambda *a, **k: scene)
+    out, evals = str(tmp_path / "gsp"), (1, 39, 41, 80)
+    argv = ["-s", tbi.BUNDLE, "-m", out, "--gsp_shards", "1", "--device",
+            str(dev), "--quiet", "--test_iterations", *map(str, evals),
+            "--save_iterations", "80", "--checkpoint_iterations", "80"]
+    for k, v in GSP_LOOP_SCHEDULE.items():
+        argv += [f"--{k}", str(v)]
+    code, launched = tbi.launched(lambda: train_cli.main(argv))
+    psnr = {int(i): float(v) for i, v in re.findall(
+        r"\[ITER (\d+)\] Evaluating train: PSNR (\S+)",
+        capsys.readouterr().out)}
+    log = _read_jsonl(os.path.join(out, "train_log.jsonl"))
+    events = _read_jsonl(os.path.join(out, "densify_log.jsonl"))
+    assert code == 0 and [m["iter"] for m in log] == [1]
+    assert all(math.isfinite(m["image_loss"]) and not m["nonfinite_grads"]
+               for m in log)
+    assert psnr[39] > psnr[1] and psnr[80] > psnr[41], psnr
+    geo = _geo_steps(OptimizationParams(**GSP_LOOP_SCHEDULE), scene.n_train,
+                     1, 80)
+    assert _of(launched) == tbi.want(80 + 5 * len(evals), 80,
+                                     geo + 5 * len(evals), geo)
+    assert launched.get("ssim_fwd") and launched.get("ssim_bwd")
+    assert events and all(e.get("gsp_shards") == 1 for e in events)
+    ck, st = os.path.join(out, "chkpnt80.npz"), bundle.train_inputs(
+        tbi.SIZES[0])[0]
+    loaded, it = checkpoint.load_state(trainer.TrainState(
+        model=st.model, app_ab=st.app_ab, app_opt=st.app_opt, net=st.net,
+        net_opt=None, spatial_lr_scale=1.0), ck)
+    raw, again = dict(np.load(ck)), checkpoint.state_arrays(loaded)
+    assert it == 80 and all(again[k].tobytes() == raw[k].tobytes()
+                            for k in again)
+    xyz = ply.load_gaussian_ply(os.path.join(
+        out, "point_cloud", "iteration_80", "point_cloud.ply"))["xyz"]
+    assert np.array_equal(xyz, raw["params.xyz"][raw["alive"]])
+    assert all(np.isfinite(v).all() for v in raw.values()
+               if v.dtype.kind == "f")
+
+
+@pytest.mark.gpu
+def test_prod_run_at_1m_seeds_and_its_bundle(tmp_path, monkeypatch):
+    """`train_runs prod` at the JAX package's 1M configuration (1M seeds,
+    1.5M ground-truth points, 16 views at 960x544, thresholds 8e-5 /
+    1.6e-4, debug on) cut to 60 iterations: the native KNN once, the
+    instance cap (2^16) grown, the capacity (2^20, 95% full) grown before
+    the densify event at 20, finite, the PSNR rising, exactly the launches
+    of 60 steps and 7 evaluation renders; its bundle served once: 5
+    renders, 1 warp, finite, the run's splats; a snapshot of every 16th
+    alive row of its model (so that the plain path's backward walks take
+    seconds) with the alive row nearest view 0's centre ray poisoned,
+    replayed through the kernels and the plain path: per term the same
+    non-finite counts, the poisoned row among the rows named."""
+    from ibgs_tpu_torch import convert
+    from ibgs_tpu_torch.config import OptimizationParams
+    from ibgs_tpu_torch.eval.render_driver import EvalRenderer
+    from ibgs_tpu_torch.models.aggregation import (ColorFusionResidualNet,
+                                                   init_fusion_net)
+    from ibgs_tpu_torch.models.gaussians import PARAM_FIELDS
+    from ibgs_tpu_torch.ops.rasterize import RasterConfig
+    from ibgs_tpu_torch.renderer import source_views_from_stacks
+    from ibgs_tpu_torch.scripts import train_runs
+    from ibgs_tpu_torch.utils import native
+    dev = _cuda()
+    path, out = str(tmp_path / "bundle.npz"), str(tmp_path / "prod")
+    pl = train_runs.plan([
+        "prod", out, "--bundle", path, "--device", str(dev), "--seed_pts",
+        "1000000", "--gt", "1500000", "--grad_th", "8e-5", "--abs_th",
+        "1.6e-4", "--init_capacity", str(1 << 20), "--cap", str(1 << 16),
+        "--debug", "1", "--log_every", "1", "--iters", "60"])
+    pl.opt = dataclasses.replace(
+        pl.opt, densify_from_iter=10, densification_interval=10,
+        densify_until_iter=25, single_view_weight_from_iter=60,
+        multi_view_weight_from_iter=60)
+    pl.train["test_iterations"] = (60,)
+    scene = train_runs.build_scene(pl)
+    knn, calls = native.knn_mean_sq_dist_3, []
+    monkeypatch.setattr(native, "knn_mean_sq_dist_3",
+                        lambda pts: calls.append(len(pts)) or knn(pts))
+    (res, state, stacks, _), launched = tbi.launched(
+        lambda: train_runs.run(pl, scene))
+    log = _read_jsonl(os.path.join(out, "train_log.jsonl"))
+    events = _read_jsonl(os.path.join(out, "densify_log.jsonl"))
+    assert calls == [1_000_000]
+    assert {"instance_cap", "capacity"} <= {e["event"] for e in res["events"]}
+    assert events[0]["capacity"] > 1 << 20
+    assert events[0]["n_alive_before"] > 0.9 * (1 << 20)
+    assert [m["iter"] for m in log] == list(range(1, 61))
+    assert all(m["nonfinite_grads"] == 0 and all(math.isfinite(m[k]) for k in (
+        "image_loss", "normal_loss", "photo_loss", "agg_loss", "psnr"))
+        for m in log)
+    assert log[-1]["psnr"] > log[0]["psnr"]
+    geo = _geo_steps(pl.opt, scene.n_train, 1, 60)
+    assert _of(launched) == tbi.want(60 + 7, 60, geo + 7, geo)
+    assert launched.get("ssim_fwd") and launched.get("ssim_bwd")
+
+    d = dict(np.load(path))
+    sc = convert.bundle_scene(d, 960, 544, dev)
+    net = init_fusion_net(ColorFusionResidualNet(
+        32, pl.opt.feat_aggregate_mode), torch.Generator().manual_seed(0))
+    ev = EvalRenderer(sc["model"], net, sc["images"], sc["w2v"],
+                      sc["centers"], sc["train_cameras"], OptimizationParams(),
+                      RasterConfig(staircase_cull=True), device=dev)
+    o, launched = tbi.launched(lambda: ev.render_one(sc["cam"],
+                                                     list(range(sc["count"]))))
+    assert _of(launched) == tbi.want(5, warps=1) and tbi.finite(o)
+    assert int(d["xyz"].shape[0]) == res["points_final"]
+
+    cam, m, idx = scene.train_cameras[0], state.model, np.zeros(5, np.int64)
+    nb = list(scene.nearest_ids[0][:pl.opt.number_src_frames])
+    idx[:len(nb)] = nb
+    src = source_views_from_stacks(
+        stacks["images"], stacks["depths"], stacks["w2v"], stacks["centers"],
+        torch.as_tensor(idx).to(dev), len(nb), cam)
+    pc = m.params.xyz.detach() @ cam.view[:3, :3].T + cam.view[:3, 3]
+    off = torch.hypot(pc[:, 0], pc[:, 1]) / pc[:, 2].clamp_min(1e-6)
+    near = int(torch.where(m.alive & (pc[:, 2] > 0.2), off, math.inf).argmin())
+    keep = np.union1d(np.flatnonzero(m.alive.cpu().numpy())[::16], [near])
+    row = int(np.searchsorted(keep, near))
+    snap = {k: getattr(m.params, k).detach().cpu().numpy()[keep]
+            for k in PARAM_FIELDS}
+    snap["log_scale"][row, 0] = np.nan
+    snap.update(iter=60, cam_idx=0, src_idx=idx, src_count=len(nb),
+                alive=np.ones(len(keep), bool), bg=np.zeros(3, np.float32),
+                gt=stacks["images"][0].cpu().numpy(), burned_in=0.5,
+                use_app=False, nonfinite_grads=0, **{
+                    "src_" + k: getattr(src, k).cpu().numpy()
+                    for k in ("images", "depths", "ref_to_src", "cam_pos")})
+    got, want = _replays(snap, cam, dev)
+    assert {t: (a, b, len(r)) for t, (a, b, r) in got.items()} == \
+        {t: (a, b, len(r)) for t, (a, b, r) in want.items()}
+    assert any(row in r for _, _, r in got.values())
+
+
+# the suite runner's schedule: the JAX package's tests/test_colmap_e2e.py
+SUITE_EXTRA = [
+    "--eval", "--iterations", "15", "--densify_from_iter", "6",
+    "--densification_interval", "6", "--densify_until_iter", "12",
+    "--single_view_weight_from_iter", "8", "--multi_view_weight_from_iter",
+    "8", "--use_color_aggregation", "--start_color_aggregation_iter", "10",
+    "--color_aggregate_burnin_steps", "3", "--number_src_frames", "2",
+    "--nb_visible_src_frames", "2", "--position_lr_max_steps", "15",
+    "--multi_view_num", "3", "--multi_view_max_angle", "120",
+    "--multi_view_max_dis", "10", "--instance_cap", "16384",
+    "--save_iterations", "15", "--test_iterations", "15",
+    "--checkpoint_iterations", "15", "--quiet"]
+
+
+@pytest.mark.gpu
+def test_exp_script_chain_on_the_card(tmp_path):
+    """`python -m ibgs_tpu_torch.exp_script` on the COLMAP fixture: train,
+    render and metrics as subprocesses on the card; exit 0, its result
+    files, both splits' PSNR finite and above 5 dB."""
+    import subprocess
+    import sys
+    dev = _cuda()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ibgs_tpu_torch.exp_script", "--data_root",
+         os.path.join(tbi.ROOT, "tests", "fixtures"), "--out_root",
+         str(tmp_path), "--scenes", "mini_colmap", "--device", str(dev),
+         "--extra", *SUITE_EXTRA], cwd=tbi.ROOT, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    scene_dir = tmp_path / "custom" / "mini_colmap"
+    for f in ("result_fps_mem.json", "per_view_renders.json"):
+        assert (scene_dir / f).exists(), f
+    for f in ("results_renders.json", "results_renders_aggregate.json"):
+        (vals,) = json.loads((scene_dir / f).read_text()).values()
+        assert math.isfinite(vals["PSNR"]) and vals["PSNR"] > 5.0, f
+
+
+def _finite_json(x):
+    if isinstance(x, dict):
+        return all(_finite_json(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return all(_finite_json(v) for v in x)
+    return not isinstance(x, float) or math.isfinite(x)
+
+
+@pytest.mark.gpu
+def test_bench_on_the_card(tmp_path):
+    """`ibgs_tpu_torch.bench` on its four default configs (train mode), the
+    bundle in render mode, the 1M scene and the bundle traced: finite, no
+    config skipped, no profile error, a chain of 5 steps 5 launches of
+    each forward (and, training, backward) kernel; parse_trace's device
+    total the trace's, one bench_step span a step."""
+    from ibgs_tpu_torch import bench
+    from ibgs_tpu_torch.scripts import parse_trace
+    from ibgs_tpu_torch.utils import profiling
+    dev, k = _cuda(), 5
+
+    def run(argv, train):
+        out = bench.run(bench.build_parser().parse_args(
+            ["--device", str(dev), "--iters", str(k)] + argv))
+        assert _finite_json(out) and out["value"] > 0
+        assert "skipped_over_budget" not in out["detail"]
+        for row in out["detail"]["configs"]:
+            got = {**row["blend_launches"], **row["warp_launches"],
+                   **row["preprocess_launches"]}
+            assert _of(got) == tbi.want(k, k * train, k, k * train), row
+            assert "profile_error" not in row, row
+        return out
+
+    out, launched = tbi.launched(lambda: run([], 1))
+    assert launched.get("ssim_fwd") and launched.get("ssim_bwd")
+    assert [f"{r['config']}@{r['resolution']}"
+            for r in out["detail"]["configs"]] == [
+        "random@960x544", "random@1920x1088", "converged@960x544",
+        "converged@1920x1088"]
+    run(["--ckpt", tbi.BUNDLE, "--mode", "render"], 0)
+    run(["--n", "1000000", "--width", "960", "--height", "544",
+         "--repeats", "1"], 1)
+    out = run(["--ckpt", tbi.BUNDLE, "--width", "960", "--height", "544",
+               "--repeats", "1", "--profile", str(tmp_path)], 1)
+    path = os.path.join(str(tmp_path), "converged_" + out["detail"][
+        "configs"][0]["resolution"], "trace.json")
+    summ = parse_trace.summarize(parse_trace.load_events(path), k, top_n=20)
+    with open(path) as f:
+        dev_events, lost = profiling.device_events(
+            json.load(f).get("traceEvents", []))
+    own_ms = sum(e.get("dur", 0) for e in dev_events) / 1e3
+    assert summ["device_events"] == len(dev_events) and summ["device_ms"] > 0
+    assert not lost and not summ["lost_launches"]
+    assert abs(summ["device_ms"] * k - own_ms) <= 1e-9 * own_ms
+    steps = [x for x in summ["spans"] if x[0] == "bench_step"]
+    assert steps and steps[0][6] == k
+
+
+@pytest.mark.gpu
+def test_probes_on_the_card():
+    """gsp_tax on both exchanges (first losses within 2e-5 relative),
+    gsp_scaling's row at world size 1 (exact, no overflow), kernel_probe
+    (finite; both blend kernels against plain on its first 4 tile rows),
+    perf_probe's six stages (finite, no profile error)."""
+    import torch.distributed as dist
+
+    from ibgs_tpu_torch.scripts import (gsp_scaling, gsp_tax, kernel_probe,
+                                        perf_probe)
+    dev = _cuda()
+    for generic in (False, True):
+        u, g = gsp_tax.run(gsp_tax.build_parser().parse_args(
+            ["--device", str(dev)] + (["--generic"] if generic else [])))[:2]
+        assert _finite_json([u, g])
+        assert abs(u["loss"] - g["loss"]) <= 2e-5 * max(abs(u["loss"]), 1.0)
+    opened = not dist.is_initialized()
+    try:
+        row = gsp_scaling.rank_row(1, str(dev), True)
+    finally:
+        if opened and dist.is_initialized():
+            dist.destroy_process_group()
+    assert row["exact"] and row["overflow"] == 0 and _finite_json(row)
+    assert _finite_json(kernel_probe.run(device=dev))
+    pl, cfg = kernel_probe.probe_list(device=dev), kernel_probe.config()
+    top = pl.rows(4)
+    k_out = blend.blend_fwd_cuda(*pl.args(cfg))
+    tbi.assert_fwd_matches(k_out.crop(top.Hp, top.Wp),
+                           blend.blend_plain(*top.args(cfg)), int_share=1e-4)
+    cts = tuple(torch.ones_like(getattr(k_out, f)) for f in
+                ("color", "normal", "final_t", "buf_depth", "buf_weight"))
+    m = int(top.stop[-1])
+    k1, k2 = (blend.blend_bwd_cuda(*pl.args(cfg), k_out, cts)[:m]
+              for _ in range(2))
+    tbi.assert_columns_close(k1, blend.blend_bwd_plain(
+        *top.args(cfg), k_out.crop(top.Hp, top.Wp),
+        tuple(c[:top.Hp] for c in cts))[:m])
+    assert torch.equal(k1, k2)
+    stages = [r for r in perf_probe.run(device=dev)
+              if r["probe"].startswith("stage_")]
+    assert [r["probe"] for r in stages] == list(perf_probe.STAGES)
+    assert _finite_json(stages)
+    assert not any("profile_error" in r for r in stages)

@@ -147,7 +147,7 @@ def test_function_on_cpu_is_the_plain_version(case):
     CPU path) against `preprocess_plain`, and the gradients of one
     cotangent table through it against autograd through the plain
     version; no kernel launch counted."""
-    before = dict(tpre.LAUNCHES)
+    before = dict(_cuda.LAUNCHES)
     (sp, grads), (ref, ref_grads) = _function_vs_plain(case)
     for fld in dataclasses.fields(tpre.Splats2D):
         a, b = getattr(sp, fld.name), getattr(ref, fld.name)
@@ -156,7 +156,7 @@ def test_function_on_cpu_is_the_plain_version(case):
     assert sp.opacity is ref.opacity or torch.equal(sp.opacity, ref.opacity)
     for g, rg in zip(grads, ref_grads):
         assert torch.equal(g, rg)
-    assert tpre.LAUNCHES == before
+    assert _cuda.LAUNCHES == before
 
 
 def test_depth_and_integer_outputs_carry_no_gradient():

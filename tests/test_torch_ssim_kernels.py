@@ -110,8 +110,9 @@ def host_fwd(lib, x, y, moments=False):
 
 
 def host_bwd_entry(lib, x, xb, y, yb, shape, window, c1, c2, g, strides,
-                   mom, dx, dy, stream=None):
-    """`_cuda.ssim_bwd`'s call of the host build."""
+                   mom, dx, dy):
+    """The host build's backward entry, called with `_cuda.ssim_bwd`'s
+    arguments."""
     terms = [_ptr(t) for d in (dx, dy)
              for t in (d if d is not None else (None,) * 3)]
     return lib.ibgs_ssim_bwd_host(_ptr(x), xb, _ptr(y), yb, *shape, window,
@@ -203,18 +204,16 @@ def test_host_backward_stride0_and_strided_gradient(host_lib):
 
 @pytest.fixture
 def host_kernels(host_lib, monkeypatch):
-    """`ssim_map_cuda`'s own path on CPU tensors: the host build stands in
-    for the launches, counted apart from LAUNCHES; the device check, the
-    device guard and the stream are left out."""
-    def fwd(x, xb, y, yb, shape, window, c1, c2, out, mom, stream):
-        return host_lib.ibgs_ssim_fwd_host(_ptr(x), xb, _ptr(y), yb, *shape,
-                                           window, c1, c2, _ptr(out),
-                                           _ptr(mom))
-    monkeypatch.setattr(_cuda, "ssim_fwd", fwd)
-    monkeypatch.setattr(_cuda, "ssim_bwd",
-                        lambda *a: host_bwd_entry(host_lib, *a))
+    """`ssim_map_cuda`'s own path on CPU tensors, through `_cuda`'s launch
+    wrappers: the host build's entries stand in for the C entries (the
+    stream argument dropped), counted in a LAUNCHES of their own; the
+    device check, the device guard and the stream are left out."""
+    entries = types.SimpleNamespace(
+        ibgs_ssim_fwd=lambda *a: host_lib.ibgs_ssim_fwd_host(*a[:-1]),
+        ibgs_ssim_bwd=lambda *a: host_lib.ibgs_ssim_bwd_host(*a[:-1]))
+    monkeypatch.setattr(_cuda, "load", lambda name: entries)
+    monkeypatch.setattr(_cuda, "LAUNCHES", dict.fromkeys(_cuda.LAUNCHES, 0))
     monkeypatch.setattr(tssim, "_check", lambda a, b: None)
-    monkeypatch.setattr(tssim, "LAUNCHES", dict.fromkeys(tssim.LAUNCHES, 0))
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -263,10 +262,9 @@ def test_objective_through_the_kernels_path_matches_plain(host_kernels):
     bit for bit; 2 forward and 2 backward calls counted."""
     leaves, fixed = _objective_inputs()
     want_total, want = _objective_grads(leaves, fixed)
-    before = dict(tssim.LAUNCHES)
     host_kernels.setattr(losses, "ssim_map", tssim.ssim_map_cuda)
     got_total, got = _objective_grads(leaves, fixed)
-    assert {k: tssim.LAUNCHES[k] - before[k] for k in before} == \
+    assert {k: n for k, n in _cuda.LAUNCHES.items() if n} == \
         {"ssim_fwd": 2, "ssim_bwd": 2}
     assert same_bits(got_total.detach(), want_total.detach())
     for name, a, b in zip(leaves, got, want):
@@ -290,7 +288,7 @@ def test_cpu_tensors_take_the_plain_path():
     """`losses.ssim_map` on CPU tensors is the plain chain, forward and
     backward, and launches nothing."""
     x, y = images("frame_37x53")
-    before = dict(tssim.LAUNCHES)
+    before = dict(_cuda.LAUNCHES)
     xg = x.clone().requires_grad_(True)
     got = losses.ssim_map(xg, y)
     (g,) = torch.autograd.grad(got.sum(), xg)
@@ -299,7 +297,8 @@ def test_cpu_tensors_take_the_plain_path():
     (gp,) = torch.autograd.grad(want.sum(), xp)
     assert same_bits(got.detach(), want.detach()) and same_bits(g, gp)
     assert float(losses.ssim(x, y)) == float(want.detach().mean())
-    assert tssim.LAUNCHES == before == {"ssim_fwd": 0, "ssim_bwd": 0}
+    assert _cuda.LAUNCHES == before
+    assert (before["ssim_fwd"], before["ssim_bwd"]) == (0, 0)
 
 
 def test_cuda_wrapper_rejects_bad_inputs():
@@ -325,7 +324,7 @@ def test_cuda_wrapper_rejects_bad_inputs():
         ((f, y[0]), "one CUDA device"),
         ((f, meta), "one CUDA device"),
     ]
-    before = dict(tssim.LAUNCHES)
+    before = dict(_cuda.LAUNCHES)
     for args, msg in bad:
         with pytest.raises(ValueError, match=msg):
             tssim.ssim_map_cuda(*args)
@@ -333,7 +332,7 @@ def test_cuda_wrapper_rejects_bad_inputs():
     # path in the dispatch, which refuses it
     with pytest.raises(ValueError, match="one CUDA device"):
         losses.ssim_map(f, meta)
-    assert tssim.LAUNCHES == before
+    assert _cuda.LAUNCHES == before
 
 
 def test_ssim_kernels_are_built_and_bound():
@@ -352,4 +351,5 @@ def test_ssim_kernels_are_built_and_bound():
         assert m, fn
         assert len(m.group(1).split(",")) == len(argtypes)
     assert 'extern "C" const char* ibgs_cuda_error_string' in text
-    assert tuple(tssim.LAUNCHES) == ("ssim_fwd", "ssim_bwd")
+    assert [k for k in _cuda.LAUNCHES if k.startswith("ssim")] == \
+        ["ssim_fwd", "ssim_bwd"]
