@@ -23,7 +23,8 @@ benchmark.run`.  One JSON line a phase:
           (`_cuda.kernel_info`); tile range lengths.  Inputs: the bundle
           at 960x544 and 1920x1088 with one real backward of each mode,
           the random 1M scene at 960x544, seeded SSIM frames at 1920x1088
-          and 960x540 as the train step passes them
+          and 960x540 as the train step passes them, a seeded train
+          state at 1,310,720 and 2,620,416 slots for the optimizer
 
 then {"kernels": [...], "launches": {...}} (a row per kernel: source,
 what it replaces, its main case's ms, plain ms and bound, every case; the
@@ -86,6 +87,8 @@ PRE_PROFILED = 5                   # profiled calls per projection kernel
 # the SSIM loss's frames: the bundle cell's and the Tanks and Temples
 # cell's; each as a frame pair and as the train step's stack of 3 sources
 SSIM_SIZES = [(1920, 1088), (960, 540)]
+# the optimizer's slots: the 1M and the Tanks and Temples cells' capacities
+OPTIM_SLOTS = {"1m": 1_310_720, "tnt": 2_620_416}
 MODE_NAMES = {0: "color", 1: "render_geo", 2: "depth_only"}
 
 
@@ -241,6 +244,88 @@ def ssim_rows(dev, failures, tbi):
                     "plain_launches": p_dev.get("device_launches"),
                     **_cuda.kernel_info(name)})
             del mom, plain_out, x, y, ins
+    return rows
+
+
+def optim_bytes(x):
+    """Bytes the optimizer's pass must move on optim_inputs `x`: Adam reads
+    p, m, v, g and writes p, m, v (28 bytes an element) and a Gaussian
+    field the alive mask (a byte a slot); the statistics read both screen
+    gradients, the radii and the five statistics and write the five (60
+    bytes a slot); a gradient only counted is read (4 bytes an element);
+    the count is written (8)."""
+    from ibgs_tpu_torch.models.gaussians import PARAM_FIELDS
+    P = x.radii.shape[0]
+    fields = sum(getattr(x.g.params, k).numel() for k in PARAM_FIELDS)
+    net = sum(t.numel() for t in x.g.net)
+    return (28 * (fields + x.g.app_ab.numel()) + len(PARAM_FIELDS) * P
+            + 60 * P + (28 if x.phase.use_aggregation else 4) * net + 8)
+
+
+def optim_ops(x):
+    """Float ops of the pass: 14 an Adam element (b1·m, (1-b1)·g, their
+    sum, b2·v, (1-b2)·g·g, their sum, the two bias corrections, lr·, the
+    root, + eps, the quotient, the difference), 16 a statistics slot (4
+    scales, 4 squares, 2 sums, 2 roots, 4 accumulations)."""
+    from ibgs_tpu_torch.models.gaussians import PARAM_FIELDS
+    n = (sum(getattr(x.g.params, k).numel() for k in PARAM_FIELDS)
+         + x.g.app_ab.numel()
+         + (sum(t.numel() for t in x.g.net) if x.phase.use_aggregation
+            else 0))
+    return 14 * n + 16 * x.radii.shape[0]
+
+
+def optim_rows(dev, failures, tbi):
+    """The optimizer kernel's rows at OPTIM_SLOTS, a geometry step with
+    aggregation as trainer.apply_grads runs it, each held to the plain
+    chain bit for bit first (tbi.assert_optim_pair): the kernel's device ms
+    (the median of profiled calls, by its name), the whole call's device
+    ms (the count's memset with it) and host ms, the plain chain's ms by
+    CUDA events with its device ms and launches."""
+    from ibgs_tpu_torch.ops import _cuda, optim
+    from ibgs_tpu_torch.train import trainer
+    from ibgs_tpu_torch.utils import profiling
+
+    rows = []
+    for tag, P in OPTIM_SLOTS.items():
+        x = tbi.optim_inputs(P, dev, P, True)
+        check(failures, f"optim {tag}", tbi.assert_optim_pair, x)
+
+        def call():
+            return trainer.apply_grads(x.state, x.g, x.radii, *x.wh, x.lrs,
+                                       x.state.net, x.phase, x.net_lr)
+
+        def plain():
+            on_kernel = optim.on_kernel
+            optim.on_kernel = lambda device: False
+            try:
+                return call()
+            finally:
+                optim.on_kernel = on_kernel
+        call()
+        runs = [profiling.device_time(call, DEVICE, top=4)
+                for _ in range(PRE_PROFILED)]
+        if any("error" in r for r in runs):
+            failures.append(f"timing optim {tag}: {runs}")
+            continue
+        kernel_ms = sorted(sum(t[1] for t in r["top"]
+                               if "optim_kernel" in t[0])
+                           for r in runs)[len(runs) // 2]
+        p_dev = profiling.device_time(plain, DEVICE)
+        rows.append({
+            "kernel": "optim", "case": tag, "slots": P,
+            **row(kernel_ms, cuda_ms(plain, 3, warmup=1), optim_bytes(x),
+                  optim_ops(x)),
+            "call_device_ms": sorted(r["device_busy_ms"]
+                                     for r in runs)[len(runs) // 2],
+            "call_launches": runs[0]["device_launches"],
+            "host_ms": median_range([host_ms(call)
+                                     for _ in range(PRE_PROFILED)]),
+            "events_ms": cuda_ms(call, 20),
+            "plain_device_ms": p_dev.get("device_busy_ms"),
+            "plain_launches": p_dev.get("device_launches"),
+            **_cuda.kernel_info("optim")})
+        del x
     return rows
 
 
@@ -520,13 +605,15 @@ def main():
             "plain_ms": median_range([host_ms(plain) for _ in range(3)])})
 
     ssim_cases = ssim_rows(dev, failures, tbi)
+    optim_cases = optim_rows(dev, failures, tbi)
     emit({"phase": "timing", "blend_fwd": fwd_cases, "blend_bwd": bwd_cases,
           "warp": warp_cases, "preprocess": pre_cases,
-          "binning": bin_cases, "ssim": ssim_cases,
+          "binning": bin_cases, "ssim": ssim_cases, "optim": optim_cases,
           "tile_ranges": {f"{wh[0]}x{wh[1]}": range_lengths(preps[wh])
                           for wh in SIZES}})
     if failures or not all(math.isfinite(c["ms"]) for c in (
-            *fwd_cases, *bwd_cases, *warp_cases, *pre_cases, *ssim_cases)):
+            *fwd_cases, *bwd_cases, *warp_cases, *pre_cases, *ssim_cases,
+            *optim_cases)):
         for f in failures or ["a non-finite kernel time"]:
             print("chip_smoke FAILED: " + f, file=sys.stderr)
         return 1
@@ -549,7 +636,9 @@ def main():
     # ---- kernels: a row each, with its main case ------------------------
     # (no single PyTorch call computes any of them: the warp's per-entry
     # weights, mask and B-sum, the projection's EWA covariance, SH colour,
-    # plane and tile rectangle a splat, or their gradients)
+    # plane and tile rectangle a splat, or their gradients; no torch.optim
+    # Adam masks dead slots, counts non-finite gradients or keeps the
+    # statistics)
     s0, s1 = (f"{w}x{h}" for w, h in SIZES)
     geo0 = {"mode": "render_geo", "size": s0}
     table = {  # kernel: (source, what it replaces, its main case)
@@ -565,9 +654,12 @@ def main():
                {"scene": f"bundle_{s1}"}) for k in _cuda.BIN_KERNELS},
         **{k: ("ssim", "train/losses.py ssim_map",
                {"case": "%dx%d" % SSIM_SIZES[0]})
-           for k in ("ssim_fwd", "ssim_bwd")}}
+           for k in ("ssim_fwd", "ssim_bwd")},
+        "optim": ("optim", "models/gaussians.py:253 adam_step, :285 "
+                  "accumulate_stats; train/trainer.py:54 side_adam, :211 "
+                  "the non-finite count", {"case": "1m"})}
     cases = [*fwd_cases, *bwd_cases, *warp_cases, *pre_cases, *bin_cases,
-             *ssim_cases]
+             *ssim_cases, *optim_cases]
     rows = []
     for name, (source, replaces, key) in table.items():
         mine = [c for c in cases if c["kernel"] == name]

@@ -21,6 +21,7 @@ import torch
 from ibgs_tpu_torch.core import sh as shlib
 from ibgs_tpu_torch.core import transforms as tf
 from ibgs_tpu_torch.core.knn import initial_log_scales
+from ibgs_tpu_torch.ops import optim
 
 
 @dataclasses.dataclass
@@ -257,26 +258,24 @@ def bias_corrections(step: int, b1: float, b2: float):
 
 @torch.no_grad()
 def adam_step(model: GaussianModel, grads: GaussianParams,
-              lrs: GaussianParams, b1=0.9, b2=0.999,
-              eps=1e-15) -> GaussianModel:
+              lrs: GaussianParams, b1=0.9, b2=0.999, eps=1e-15,
+              into: Optional[optim.OptimPass] = None) -> GaussianModel:
     """One Adam update of every parameter group with its own learning
     rate.  Gradients of dead slots are zeroed first (their reverse-mode
     values can be 0·nan).  Written out, not torch.optim, so that it can be
     held to the JAX package exactly; it returns new tensors and leaves the
-    inputs as they are."""
+    inputs as they are.  The updates are segments of `into` (an
+    optim.OptimPass; its `run` computes them on CUDA tensors), else of a
+    pass of their own, run here."""
+    op = optim.OptimPass(model.alive.device) if into is None else into
     step = model.step + 1
-    bc1, bc2 = bias_corrections(step, b1, b2)
-    alive = model.alive
-
-    def upd(p, m, v, g, lr):
-        g = torch.where(alive.reshape((-1,) + (1,) * (g.dim() - 1)), g, 0.0)
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * g * g
-        return p - lr * (m / bc1) / (torch.sqrt(v / bc2) + eps), m, v
-
-    out = {k: upd(getattr(model.params, k), getattr(model.mu, k),
-                  getattr(model.nu, k), getattr(grads, k), getattr(lrs, k))
+    bc = bias_corrections(step, b1, b2)
+    out = {k: op.adam(getattr(model.params, k), getattr(model.mu, k),
+                      getattr(model.nu, k), getattr(grads, k),
+                      getattr(lrs, k), bc, b1, b2, eps, alive=model.alive)
            for k in PARAM_FIELDS}
+    if into is None:
+        op.run()
     return dataclasses.replace(
         model, params=GaussianParams(**{k: o[0] for k, o in out.items()}),
         mu=GaussianParams(**{k: o[1] for k, o in out.items()}),
@@ -289,26 +288,21 @@ def adam_step(model: GaussianModel, grads: GaussianParams,
 
 @torch.no_grad()
 def accumulate_stats(model: GaussianModel, screen_grad, screen_grad_abs,
-                     radii, width: int, height: int) -> GaussianModel:
+                     radii, width: int, height: int,
+                     into: Optional[optim.OptimPass] = None
+                     ) -> GaussianModel:
     """screen_grad[_abs]: (P, 2) pixel-unit screen-space gradients from the
     rasterizer's dummy inputs, rescaled to the NDC convention (x 0.5·W/H)
     whose thresholds densification uses.  Visible Gaussians (radius > 0)
-    accumulate the norms and their counts and raise max_radii2d."""
-    vis = radii > 0
-    scale = torch.tensor([0.5 * width, 0.5 * height], dtype=torch.float32,
-                         device=screen_grad.device)
-    sgrad = screen_grad * scale
-    sabs = screen_grad_abs * scale
-    visf = vis.to(torch.float32)
-    return dataclasses.replace(
-        model,
-        max_radii2d=torch.where(vis, torch.maximum(
-            model.max_radii2d, radii.to(torch.float32)), model.max_radii2d),
-        grad_accum=model.grad_accum + torch.where(
-            vis, torch.linalg.vector_norm(sgrad, dim=-1), 0.0),
-        grad_accum_abs=model.grad_accum_abs + torch.where(
-            vis, torch.linalg.vector_norm(sabs, dim=-1), 0.0),
-        denom=model.denom + visf, denom_abs=model.denom_abs + visf)
+    accumulate the norms and their counts and raise max_radii2d
+    (optim.stats_plain).  A segment of `into`, else of a pass of its own,
+    run here."""
+    op = optim.OptimPass(model.alive.device) if into is None else into
+    new = op.stats(tuple(getattr(model, k) for k in STAT_FIELDS),
+                   screen_grad, screen_grad_abs, radii, width, height)
+    if into is None:
+        op.run()
+    return dataclasses.replace(model, **dict(zip(STAT_FIELDS, new)))
 
 
 # --------------------------------------------------------------------------

@@ -34,7 +34,8 @@ SOURCES = {"blend_fwd": CSRC / "blend_fwd.cu",
            "warp": CSRC / "warp.cu",
            "preprocess": CSRC / "preprocess.cu",
            "binning": CSRC / "binning.cu",
-           "ssim": CSRC / "ssim.cu"}
+           "ssim": CSRC / "ssim.cu",
+           "optim": CSRC / "optim.cu"}
 HEADERS = (CSRC / "blend_common.cuh",)
 # --fmad=false: no multiply-add contraction, so float ops round one by one
 # as the plain PyTorch versions' ops do (see the notes in the sources).
@@ -49,7 +50,7 @@ _libs: dict = {}
 LAUNCHES = dict.fromkeys(
     ("blend_fwd", "blend_bwd", "rgb10_pack", "warp_fwd", "warp_bwd",
      "preprocess_fwd", "preprocess_bwd", "bin_key", "bin_radix", "bin_count",
-     "bin_emit", "bin_ranges", "ssim_fwd", "ssim_bwd"), 0)
+     "bin_emit", "bin_ranges", "ssim_fwd", "ssim_bwd", "optim"), 0)
 
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _c_ll = ctypes.c_longlong
@@ -125,6 +126,11 @@ _SIGNATURES = {
                       + [_c_ptr, _c_float, _c_float, _c_ptr] + [_c_ll] * 4
                       + [_c_ptr] * 8, _c_int),
     "ibgs_ssim_info": ([_c_int, ctypes.POINTER(_c_int)], _c_int),
+    # the table (OptimTable, copied into the kernel's parameter), the
+    # stream
+    "ibgs_optim": ([_c_ptr, _c_ptr], _c_int),
+    "ibgs_optim_layout": ([ctypes.POINTER(_c_ll)], _c_int),
+    "ibgs_optim_info": ([_c_int, ctypes.POINTER(_c_int)], _c_int),
     "ibgs_cuda_error_string": ([_c_int], ctypes.c_char_p),
 }
 
@@ -451,6 +457,46 @@ def ssim_bwd(x, x_batch, y, y_batch, shape, window, c1, c2, g, g_strides,
             c1, c2, g.data_ptr(), *g_strides, mom.data_ptr(), *terms)
 
 
+# csrc/optim.cu's table, field for field (tests/test_torch_optim.py holds
+# the layout to the source's)
+OPTIM_MAX_SEGS, OPTIM_MAX_HYPER = 36, 12
+
+
+class OptimSeg(ctypes.Structure):
+    _fields_ = ([(f, _c_ptr) for f in ("p", "m", "v", "g", "po", "mo", "vo",
+                                       "alive")]
+                + [(f, ctypes.c_uint) for f in ("n", "width", "sp", "sm",
+                                                "sv", "sg", "rot")]
+                + [(f, ctypes.c_ushort) for f in ("hyper", "flags")])
+
+
+class OptimHyper(ctypes.Structure):
+    _fields_ = [(f, _c_float) for f in ("lr", "b1", "omb1", "b2", "omb2",
+                                        "ibc1", "ibc2", "eps")]
+
+
+class OptimStats(ctypes.Structure):
+    _fields_ = ([("sg", _c_ptr), ("sa", _c_ptr), ("radii", _c_ptr),
+                 ("ins", _c_ptr * 5), ("outs", _c_ptr * 5)]
+                + [(f, ctypes.c_uint) for f in ("P", "rot", "ssg", "ssa")]
+                + [(f, _c_float) for f in ("half_w", "half_h")]
+                + [("flags", ctypes.c_uint)])
+
+
+class OptimTable(ctypes.Structure):
+    _fields_ = [("seg", OptimSeg * OPTIM_MAX_SEGS),
+                ("hyper", OptimHyper * OPTIM_MAX_HYPER),
+                ("stats", OptimStats), ("count", _c_ptr), ("nseg", _c_int)]
+
+
+def optim(table: OptimTable, device) -> None:
+    """Launch ibgs_optim over `table` (an OptimTable of `device`'s
+    pointers): zeroes the count first (where it has one), then the kernel
+    (none when the table holds no element)."""
+    _launch({"optim": 1}, device, load("optim").ibgs_optim,
+            ctypes.addressof(table))
+
+
 # kernel: (library, attribute entry, the kernel's index there, the fields
 # the entry writes)
 _SM = ("registers", "local_bytes", "ctas_per_sm")
@@ -463,6 +509,7 @@ _INFO = {
        for i, k in enumerate(BIN_KERNELS)},
     **{k: ("ssim", "ibgs_ssim_info", i, _SM + ("threads", "shared_bytes"))
        for i, k in enumerate(("ssim_fwd", "ssim_bwd"))},
+    "optim": ("optim", "ibgs_optim_info", 0, _SM + ("threads",)),
 }
 
 

@@ -26,6 +26,7 @@ from ibgs_tpu_torch.models.gaussians import (PARAM_FIELDS, GaussianModel,
                                              GaussianParams, LRConfig,
                                              accumulate_stats, adam_step,
                                              bias_corrections, lr_tree)
+from ibgs_tpu_torch.ops import optim
 from ibgs_tpu_torch.ops.epilogue import SourceViews
 from ibgs_tpu_torch.ops.rasterize import RasterConfig
 from ibgs_tpu_torch.train import losses
@@ -49,19 +50,23 @@ class SideOptState:
 
 @torch.no_grad()
 def side_adam(params, opt: SideOptState, grads, lr, b1=0.9, b2=0.999,
-              eps=1e-8):
+              eps=1e-8, into: Optional[optim.OptimPass] = None,
+              in_place: bool = False):
     """Adam on a list of tensors.  Returns (new params, new state); the
-    inputs are left as they are."""
+    inputs are left as they are, but for `in_place`, where the new values
+    are written into `params` (and returned).  The updates are segments of
+    `into` (an optim.OptimPass; its `run` computes them on CUDA tensors),
+    else of a pass of their own, run here."""
+    op = (optim.OptimPass(params[0].device if params else "cpu")
+          if into is None else into)
     step = opt.step + 1
-    bc1, bc2 = bias_corrections(step, b1, b2)
-    new_p, new_m, new_v = [], [], []
-    for p, m, v, g in zip(params, opt.mu, opt.nu, grads):
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * g * g
-        new_p.append(p - lr * (m / bc1) / (torch.sqrt(v / bc2) + eps))
-        new_m.append(m)
-        new_v.append(v)
-    return new_p, SideOptState(mu=new_m, nu=new_v, step=step)
+    bc = bias_corrections(step, b1, b2)
+    out = [op.adam(p, m, v, g, lr, bc, b1, b2, eps, in_place=in_place)
+           for p, m, v, g in zip(params, opt.mu, opt.nu, grads)]
+    if into is None:
+        op.run()
+    return [o[0] for o in out], SideOptState(
+        mu=[o[1] for o in out], nu=[o[2] for o in out], step=step)
 
 
 @dataclasses.dataclass
@@ -206,6 +211,32 @@ def loss_and_grads(opt: OptimizationParams, rcfg: RasterConfig, net,
     return total.detach(), aux, grads
 
 
+def apply_grads(state: TrainState, g: Grads, radii, width: int,
+                height: int, lrs: GaussianParams, net, phase: StepPhase,
+                net_lr: float):
+    """The step's optimizer, one launch on the card (ops/optim.py): the
+    count of non-finite gradients, Adam on the Gaussians (learning rates
+    `lrs`), the exposure table and, with aggregation, the net (in place),
+    and the densification statistics of a width x height view.  Returns
+    (the new state, the count as a 0-dim int64)."""
+    op = optim.OptimPass(state.model.alive.device)
+    # a reverse-only NaN (0·inf through a masked chain) poisons the moments
+    # while every loss stays finite: count it
+    count = op.nonfinite(g.tensors())
+    model = adam_step(state.model, g.params, lrs, into=op)
+    model = accumulate_stats(model, g.screen, g.screen_abs, radii, width,
+                             height, op)
+    (app_ab,), app_opt = side_adam([state.app_ab], state.app_opt,
+                                   [g.app_ab], lr=1e-3, b2=0.99, into=op)
+    net_opt = state.net_opt
+    if phase.use_aggregation:
+        _, net_opt = side_adam(list(net.parameters()), state.net_opt, g.net,
+                               lr=net_lr, into=op, in_place=True)
+    op.run()
+    return dataclasses.replace(state, model=model, app_ab=app_ab,
+                               app_opt=app_opt, net_opt=net_opt), count
+
+
 def make_train_step(opt: OptimizationParams, rcfg: RasterConfig,
                     net: Optional[aggregation.ColorFusionResidualNet],
                     phase: StepPhase):
@@ -226,28 +257,11 @@ def make_train_step(opt: OptimizationParams, rcfg: RasterConfig,
                 iteration, bg, use_app, burned_in)
             aux["loss"] = total
             with profiling.annotate("optimizer"):
-                # a reverse-only NaN (0·inf through a masked chain) poisons
-                # the moments while every loss stays finite: count it
-                aux["nonfinite_grads"] = sum((~torch.isfinite(x)).sum()
-                                             for x in g.tensors())
-
-                lrs = lr_tree(lrcfg, iteration, state.spatial_lr_scale)
-                model = adam_step(state.model, g.params, lrs)
-                model = accumulate_stats(model, g.screen, g.screen_abs,
-                                         aux.pop("radii"), cam.width,
-                                         cam.height)
-                (app_ab,), app_opt = side_adam([state.app_ab], state.app_opt,
-                                               [g.app_ab], lr=1e-3, b2=0.99)
-                net_opt = state.net_opt
-                if phase.use_aggregation:
-                    params = list(net.parameters())
-                    new, net_opt = side_adam(params, state.net_opt, g.net,
-                                             lr=net_lr)
-                    with torch.no_grad():
-                        for p, q in zip(params, new):
-                            p.copy_(q)
-        return dataclasses.replace(state, model=model, app_ab=app_ab,
-                                   app_opt=app_opt, net_opt=net_opt), aux
+                state, aux["nonfinite_grads"] = apply_grads(
+                    state, g, aux.pop("radii"), cam.width, cam.height,
+                    lr_tree(lrcfg, iteration, state.spatial_lr_scale), net,
+                    phase, net_lr)
+        return state, aux
 
     return step
 

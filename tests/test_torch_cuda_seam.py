@@ -20,7 +20,8 @@ from tests.test_torch_slice import one_torch_thread  # noqa: F401
 
 KERNELS = ("blend_fwd", "blend_bwd", "rgb10_pack", "warp_fwd", "warp_bwd",
            "preprocess_fwd", "preprocess_bwd", "bin_key", "bin_radix",
-           "bin_count", "bin_emit", "bin_ranges", "ssim_fwd", "ssim_bwd")
+           "bin_count", "bin_emit", "bin_ranges", "ssim_fwd", "ssim_bwd",
+           "optim")
 OPS = Path(_cuda.__file__).resolve().parent
 # what only the seam may hold
 SEAM_WORDS = ("cuda_stream", "current_stream", "error_string", "LAUNCHES")
@@ -110,8 +111,9 @@ def test_kernel_info_reads_its_entry(kernel, no_card):
 
 
 def test_kernel_info_covers_the_four_entries():
-    """One query for the warp, projection, binning and SSIM kernels, each
-    kernel at its index in its entry (the C side's order)."""
+    """One query for the warp, projection, binning, SSIM and optimizer
+    kernels, each kernel at its index in its entry (the C side's
+    order)."""
     by_entry = {}
     for kernel, (lib, entry, which, _) in _cuda._INFO.items():
         assert entry in _cuda._SIGNATURES and lib in _cuda.SOURCES
@@ -120,6 +122,8 @@ def test_kernel_info_covers_the_four_entries():
         "ibgs_warp_info": ["warp_fwd", "warp_bwd", "rgb10_pack"],
         "ibgs_preprocess_info": ["preprocess_fwd", "preprocess_bwd"],
         "ibgs_binning_info": list(_cuda.BIN_KERNELS),
-        "ibgs_ssim_info": ["ssim_fwd", "ssim_bwd"]}
+        "ibgs_ssim_info": ["ssim_fwd", "ssim_bwd"],
+        "ibgs_optim_info": ["optim"]}
     assert not any(hasattr(_cuda, f"{k}_info")
-                   for k in ("warp", "preprocess", "binning", "ssim"))
+                   for k in ("warp", "preprocess", "binning", "ssim",
+                             "optim"))

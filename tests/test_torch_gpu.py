@@ -19,12 +19,15 @@ bounds, bands and padded rows.  The projection kernels (`-k preprocess`)
 on tests/torch_preprocess_cases.py, the backward within 2x the float32
 plain version's error against float64.  The binning kernels (`-k bin`)
 and the SSIM kernels (`-k ssim`) bit for bit.  The Tanks and Temples
-frame (`-k tnt`, 960x540, its last tile row 12/16 live).
+frame (`-k tnt`, 960x540, its last tile row 12/16 live).  The optimizer's
+kernel (`-k optim`) bit for bit at the bundle's, the 1M and the Tanks and
+Temples capacities, with dead slots and planted NaN and infinities, and
+three bundle train steps through it against the plain chain.
 
 On the bundle (tests/torch_bundle_inputs.py, the kernel table's inputs in
 chip_smoke.py): every kernel on the real instances and the cotangents of a
 real backward of the training objective at 960x544 and 1920x1088, and on
-the random 1M scene; exact launch counts of each of the 14 kernels per
+the random 1M scene; exact launch counts of each of the 15 kernels per
 served view and per train step (`_cuda.LAUNCHES`); row bands; the
 Gaussian-sharded step at world size 1; the 300-iteration loop with its
 resume, the evaluation path on its model, the CLI with `--gsp_shards 1`,
@@ -1493,13 +1496,15 @@ def test_ssim_map_launches_once_and_never_syncs():
     assert launched == {"ssim_fwd": 2, "ssim_bwd": 2}
 
 
-def _bundle_train_steps(dev, plain_ssim: bool, steps: int = 3):
+def _bundle_train_steps(dev, plain_ssim: bool, steps: int = 3,
+                        plain_optim: bool = False):
     """The bundle-91k.train-1080p cell's first `steps` train steps (state,
     sources and view order as benchmark/drivers/train.py makes them, at
-    one seed), with `ssim_map` on the kernels or routed to the plain
-    chain: the loss terms of each step, the first step's gradient norms
-    and the leaves' change norms."""
+    one seed), with `ssim_map` on the kernels or routed to the plain chain
+    and the optimizer's pass likewise: the loss terms of each step, the
+    first step's gradient norms and the leaves' change norms."""
     from benchmark import compare, harness, sides
+    from ibgs_tpu_torch.ops import optim
     from ibgs_tpu_torch.ops import ssim as tssim
     from ibgs_tpu_torch.train import losses
 
@@ -1515,9 +1520,11 @@ def _bundle_train_steps(dev, plain_ssim: bool, steps: int = 3):
     step = port.m.trainer.make_train_step(
         port.opt, port.rcfg, state.net,
         port.m.trainer.StepPhase(render_geo=True, use_aggregation=True))
-    kernel = tssim.ssim_map_cuda
+    kernel, on_kernel = tssim.ssim_map_cuda, optim.on_kernel
     if plain_ssim:
         tssim.ssim_map_cuda = losses.ssim_map_plain
+    if plain_optim:
+        optim.on_kernel = lambda device: False
     try:
         losses_, grads = [], None
         for k in range(steps):
@@ -1534,7 +1541,7 @@ def _bundle_train_steps(dev, plain_ssim: bool, steps: int = 3):
         change = compare.floats(compare.leaf_norms(
             state, base=compare.base_leaves(s)))
     finally:
-        tssim.ssim_map_cuda = kernel
+        tssim.ssim_map_cuda, optim.on_kernel = kernel, on_kernel
     return losses_, grads, change
 
 
@@ -1559,6 +1566,95 @@ def test_bundle_train_step_with_ssim_kernels_matches_plain(tf32_off):
     sg = compare.norm_gap(k_change, p_change, leaves)
     print(f"\nbundle steps, kernels against plain SSIM: loss {lg}, grad "
           f"{gg}, step {sg}")
+    assert lg[0] == gg[0] == sg[0] == 0.0, (lg, gg, sg)
+
+
+# ------------------------------------------------------------ the optimizer
+
+def _optim_slots():
+    """Slots of the optimizer cases: the bundle's capacity as the bundle
+    cell loads it (one slot a splat), the 1M and the Tanks and Temples
+    cells' capacities."""
+    with np.load(tbi.BUNDLE) as d:
+        return {"bundle": d["xyz"].shape[0], "1m": 1_310_720,
+                "tnt": 2_620_416}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aggregation", [True, False],
+                         ids=["aggregation", "colour"])
+@pytest.mark.parametrize("slots", ["bundle", "1m", "tnt"])
+def test_optim_kernel_matches_plain(slots, aggregation):
+    """The optimizer's kernel against its plain chain on a train step's
+    state (tbi.optim_inputs: SH 2, 10% of the slots dead, NaN and +-inf
+    planted in the gradients of live and dead slots, of the exposure
+    table, of the net and of both screen gradients; the table at its own
+    step count; the net's segments with aggregation, its zero gradients
+    only counted without): every parameter, moment and statistic bit for
+    bit, NaN in the same places, a repeat bit-identical, the count exact
+    (12 planted with aggregation, 10 without); one launch a pass.
+    Tolerance 0 throughout: the kernel keeps the plain chain's rounding
+    points (csrc/optim.cu)."""
+    dev = _cuda()
+    x = tbi.optim_inputs(_optim_slots()[slots], dev, 2200 + len(slots),
+                         aggregation)
+    count, launched = tbi.launched(lambda: tbi.assert_optim_pair(x))
+    assert count == (12 if aggregation else 10)
+    assert launched == {"optim": 2}
+
+
+@pytest.mark.gpu
+def test_optim_kernel_refuses_bad_inputs():
+    """A tensor on the host, a float64 or a non-contiguous tensor in a
+    pass on the card: a ValueError when the segment is added, nothing
+    launched; the card build's table layout is the wrapper's."""
+    import ctypes
+    from ibgs_tpu_torch.ops import optim
+    dev = _cuda()
+    t = [torch.zeros(6, 4, device=dev) for _ in range(4)]
+    op = optim.OptimPass(dev)
+    before = dict(cu.LAUNCHES)
+    for k, bad, message in (
+            (0, torch.zeros(6, 4), "is on cpu"),
+            (3, torch.zeros(6, 4, dtype=torch.float64, device=dev),
+             "must be torch.float32"),
+            (1, torch.zeros(4, 6, device=dev).t(), "must be contiguous")):
+        args = list(t)
+        args[k] = bad
+        with pytest.raises(ValueError, match=message):
+            op.adam(*args, 1e-3, (0.1, 0.001), 0.9, 0.999, 1e-8)
+    op.run()
+    torch.cuda.synchronize()
+    assert cu.LAUNCHES == before
+    out = (ctypes.c_longlong * 6)()
+    cu.load("optim").ibgs_optim_layout(out)
+    T = cu.OptimTable
+    assert list(out) == [ctypes.sizeof(T),
+                         T.seg.offset + ctypes.sizeof(cu.OptimSeg),
+                         T.hyper.offset, T.stats.offset, T.count.offset,
+                         T.nseg.offset]
+
+
+@pytest.mark.gpu
+def test_bundle_train_steps_with_the_optim_kernel_match_plain(tf32_off):
+    """Three train steps of the bundle at 1920x1088 (geometry and
+    aggregation, iteration 13,000) with the optimizer's kernel against the
+    same steps with its pass routed to the plain chain: loss, gradient and
+    change gaps (benchmark/compare.py's numbers) 0, the kernel's outputs
+    being the plain chain's bit for bit; one optim launch a step."""
+    from benchmark import compare
+    dev = _cuda()
+    (k_loss, k_grads, k_change), launched = tbi.launched(
+        lambda: _bundle_train_steps(dev, False))
+    assert launched.get("optim") == 3
+    p_loss, p_grads, p_change = _bundle_train_steps(dev, False,
+                                                    plain_optim=True)
+    leaves = compare.moved_leaves(p_grads)
+    lg = compare.loss_gap(k_loss, p_loss)
+    gg = compare.norm_gap(k_grads, p_grads, leaves)
+    sg = compare.norm_gap(k_change, p_change, leaves)
+    print(f"\nbundle steps, optimizer kernel against plain: loss {lg}, "
+          f"grad {gg}, step {sg}")
     assert lg[0] == gg[0] == sg[0] == 0.0, (lg, gg, sg)
 
 
@@ -1661,9 +1757,10 @@ def test_served_view_launches_each_kernel_exactly(bundle, wh):
 @pytest.mark.gpu
 def test_train_steps_launch_each_kernel_exactly(bundle):
     """Ten render_geo + aggregation steps of the bundle at 960x544, each
-    one launch of every kernel and three SSIM maps with their backward,
-    finite, no non-finite gradient, the loss falling; one colour-only step
-    (iteration 5,000): no pack or warp, one SSIM map."""
+    one launch of every kernel, three SSIM maps with their backward and
+    one optimizer pass, finite, no non-finite gradient, the loss falling;
+    one colour-only step (iteration 5,000): no pack or warp, one SSIM map,
+    one optimizer pass."""
     steps = tbi.train_steps(bundle, 10)
     for k, (_, ok, launched, want) in enumerate(steps):
         assert ok and launched == want, (k, launched)

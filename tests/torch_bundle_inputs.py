@@ -2,9 +2,10 @@
 tests/test_torch_gpu.py and chip_smoke.py's kernel table: the bundle at
 960x544 and 1920x1088, its prepared renders, a train state and sources,
 the kernels' arguments in one real backward of the training objective in
-render_geo (iteration 13,000) and colour (5,000) mode; and the random 1M
-scene of `ibgs_tpu_torch.bench`; the comparisons that hold each kernel
-to its plain twin, and exact launch counts.  Nothing here runs at import.
+render_geo (iteration 13,000) and colour (5,000) mode; the random 1M
+scene of `ibgs_tpu_torch.bench`; a seeded train step's optimizer inputs
+at any slot count; the comparisons that hold each kernel to its plain
+twin, and exact launch counts.  Nothing here runs at import.
 """
 import contextlib
 import math
@@ -188,6 +189,121 @@ def ssim_inputs(H, W, stack, dev, seed):
     ct = torch.randn(shape, generator=g)
     a, b, ct = a.to(dev), b.to(dev), ct.to(dev)
     return (a[None].expand_as(b) if stack else a), b, ct
+
+
+def optim_inputs(P, dev, seed, aggregation=True, wh=SIZES[0]):
+    """A train step's optimizer inputs at P slots with SH 2, drawn from
+    `seed` on `dev`: `state` (the model at step 6 with moments and
+    statistics, 10% of its slots dead; the exposure table at step 2; the
+    fusion net, its 22 tensors, at step 4), `g` (a Grads, the SH terms
+    views of one tensor and the screen gradients of another: NaN, +inf and
+    -inf planted in the gradients of live and dead slots, of the table, of
+    the net and of both screen gradients; the net's zeros without
+    aggregation, as a colour step has them), `radii` (int32, a third 0),
+    the frame `wh`, the learning rates `lrs` of iteration 13,000, `phase`
+    and `net_lr`: the arguments of trainer.apply_grads."""
+    from ibgs_tpu_torch.config import OptimizationParams
+    from ibgs_tpu_torch.models import gaussians as G
+    from ibgs_tpu_torch.models.aggregation import (ColorFusionResidualNet,
+                                                   init_fusion_net)
+    from ibgs_tpu_torch.train import trainer
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(shape, scale=1.0, positive=False):
+        x = torch.randn(shape, generator=gen, device=dev) * scale
+        return x.abs() if positive else x
+
+    def tree(scale=1.0, positive=False):
+        return G.GaussianParams(**{
+            k: randn((P, *s), scale, positive) for k, s in dict(
+                xyz=(3,), sh_dc=(1, 3), sh_rest=(8, 3), log_scale=(3,),
+                quat=(4,), opacity_logit=(1,), normal=(3,),
+                offset=(1,)).items()})
+
+    alive = torch.rand(P, generator=gen, device=dev) >= 0.1
+    model = G.GaussianModel(
+        params=tree(), alive=alive, active_sh_degree=2, max_sh_degree=2,
+        mu=tree(1e-2), nu=tree(1e-4, True), step=6,
+        **{k: randn((P,), 3.0, True) for k in G.STAT_FIELDS})
+    g = tree(1e-2)
+    # as the projection's backward hands them over: the SH gradient's DC
+    # and rest terms are views of one (P, 9, 3) tensor
+    sh = torch.cat([g.sh_dc, g.sh_rest], dim=1)
+    g.sh_dc, g.sh_rest = sh[:, :1], sh[:, 1:]
+    live, dead = alive.nonzero()[:, 0], (~alive).nonzero()[:, 0]
+    nan, inf = float("nan"), float("inf")
+    g.xyz[live[0], 1] = nan
+    g.sh_rest[live[1], 3, 2] = inf
+    g.offset[live[2], 0] = -inf
+    g.opacity_logit[dead[0], 0] = nan
+    g.quat[dead[1], 3] = -inf
+    g.sh_rest[dead[2], 7, 0] = inf
+    net = init_fusion_net(ColorFusionResidualNet(32, "mean"),
+                          torch.Generator().manual_seed(seed)).to(dev)
+    params = list(net.parameters())
+    g_net = [randn(p.shape, 1e-3) if aggregation else torch.zeros_like(p)
+             for p in params]
+    if aggregation:
+        g_net[4].view(-1)[5] = nan
+        g_net[21][2] = inf
+    app = (trainer.APP_CAPACITY, 2)
+    g_app = randn(app, 1e-2)
+    g_app[7, 1] = -inf
+    # the screen gradients as column pairs of one (P, 4) table
+    table = randn((P, 4), 1e-3)
+    screen, screen_abs = table[:, :2], table[:, 2:]
+    screen_abs.copy_(screen.abs() + randn((P, 2), 1e-4, True))
+    screen[live[3], 0] = nan
+    screen[dead[3], 1] = inf
+    screen_abs[live[4], 1] = inf
+    radii = torch.randint(0, 6, (P,), generator=gen, device=dev,
+                          dtype=torch.int32) * (torch.rand(
+                              P, generator=gen, device=dev) >= 1 / 3)
+
+    def side(shapes, step):
+        return trainer.SideOptState(
+            mu=[randn(s, 1e-2) for s in shapes],
+            nu=[randn(s, 1e-4, True) for s in shapes], step=step)
+    state = trainer.TrainState(
+        model=model, app_ab=randn(app, 0.1),
+        app_opt=side([app], 2), net=net,
+        net_opt=side([p.shape for p in params], 4), spatial_lr_scale=3.7)
+    return types.SimpleNamespace(
+        state=state, g=trainer.Grads(params=g, app_ab=g_app, net=g_net,
+                                     screen=screen, screen_abs=screen_abs),
+        radii=radii.to(torch.int32), wh=wh,
+        lrs=G.lr_tree(trainer.make_lr_config(OptimizationParams()), ITER_GEO,
+                      3.7),
+        phase=trainer.StepPhase(True, aggregation), net_lr=1e-3)
+
+
+def optim_run(x, kernel=True):
+    """trainer.apply_grads on optim_inputs `x` (a copy of its net, updated
+    in place), through the kernel or with the pass routed to the plain
+    chain: (every tensor it returns or updates, the count)."""
+    import copy
+    import dataclasses
+    from ibgs_tpu_torch.models.gaussians import PARAM_FIELDS, STAT_FIELDS
+    from ibgs_tpu_torch.ops import optim
+    from ibgs_tpu_torch.train import trainer
+
+    net = copy.deepcopy(x.state.net)
+    on_kernel = optim.on_kernel
+    if not kernel:
+        optim.on_kernel = lambda device: False
+    try:
+        new, count = trainer.apply_grads(
+            dataclasses.replace(x.state, net=net), x.g, x.radii, *x.wh,
+            x.lrs, net, x.phase, x.net_lr)
+    finally:
+        optim.on_kernel = on_kernel
+    m = new.model
+    outs = [*(getattr(getattr(m, t), k) for t in ("params", "mu", "nu")
+              for k in PARAM_FIELDS), *(getattr(m, k) for k in STAT_FIELDS),
+            new.app_ab, *new.app_opt.mu, *new.app_opt.nu, *net.parameters(),
+            *new.net_opt.mu, *new.net_opt.nu]
+    return [t.detach() for t in outs], count
 
 
 # ------------------------------------------------ kernels against plain
@@ -383,6 +499,22 @@ def assert_ssim_pair(a, b, ct, needs=((True, True), (True, False),
     assert all(same_bits(u, v) for u, v in zip(k, again))
 
 
+def assert_optim_pair(x):
+    """The optimizer kernel on optim_inputs `x` against the plain chain:
+    every output bit for bit (NaN in the same places), the count exact
+    and above 0, a repeat bit-identical.  Returns the count."""
+    k, k_count = optim_run(x, True)
+    p, p_count = optim_run(x, False)
+    again, again_count = optim_run(x, True)
+    assert int(k_count) == int(p_count) == int(again_count) > 0, \
+        (int(k_count), int(p_count), int(again_count))
+    for i, (a, b, c) in enumerate(zip(k, p, again)):
+        assert same_bits(a, b), (i, tuple(a.shape), float(
+            (a - b).abs().nan_to_num(0.0).max()))
+        assert same_bits(a, c), i
+    return int(p_count)
+
+
 # ------------------------------------------------------ launches by path
 
 def launched(fn):
@@ -397,17 +529,17 @@ def launched(fn):
 
 
 def want(renders, backwards=0, warps=0, warp_bwds=0, ssim=0,
-         tile_passes=None):
+         tile_passes=None, optim=0):
     """The launches of `renders` renders (each projects its splats and
     blends them; with `tile_passes`, each bins them through the kernels,
     its tile ids sorted in that many radix passes after the depth order's
     4), `backwards` of them backward, `warps` warps (each packs its
-    sources first), `warp_bwds` warp backwards and `ssim` SSIM maps with
-    their backwards; zeros left out."""
+    sources first), `warp_bwds` warp backwards, `ssim` SSIM maps with
+    their backwards and `optim` optimizer passes; zeros left out."""
     n = {"blend_fwd": renders, "blend_bwd": backwards, "rgb10_pack": warps,
          "warp_fwd": warps, "warp_bwd": warp_bwds,
          "preprocess_fwd": renders, "preprocess_bwd": backwards,
-         "ssim_fwd": ssim, "ssim_bwd": ssim}
+         "ssim_fwd": ssim, "ssim_bwd": ssim, "optim": optim}
     if tile_passes is not None:
         n.update(dict.fromkeys(("bin_key", "bin_count", "bin_emit",
                                 "bin_ranges"), renders),
@@ -450,9 +582,9 @@ def train_steps(b, n_geo, wh=SIZES[0]):
     """`n_geo` render_geo + aggregation steps of the bundle at wh from a
     fresh state, then one colour-only step (iteration 5,000): per step (its
     loss, whether its losses and gradients are finite, the launches it
-    made, the launches it should make: one of each kernel and three SSIM
-    maps with their backward; the colour step no pack or warp, one SSIM
-    map)."""
+    made, the launches it should make: one of each kernel, three SSIM
+    maps with their backward and one optimizer pass; the colour step no
+    pack or warp, one SSIM map)."""
     from ibgs_tpu_torch.train import trainer
     sc, (state, src), out = b.scenes[wh], b.train_inputs(wh), []
     for mode, n in ((1, n_geo), (0, 1)):
@@ -468,5 +600,5 @@ def train_steps(b, n_geo, wh=SIZES[0]):
                     "agg_loss", "l1", "psnr"))
             out.append((float(aux["loss"]), ok, got,
                         want(1, 1, mode, mode, 3 if mode else 1,
-                             passes(wh, b.rcfg))))
+                             passes(wh, b.rcfg), optim=1)))
     return out
