@@ -360,26 +360,32 @@ def _scatter_from(model: GaussianModel, src: GaussianParams,
                   target: torch.Tensor, granted: torch.Tensor
                   ) -> GaussianModel:
     """Copy the granted rows of `src` into their target slots, alive, with
-    zero moments.  Granted targets are distinct, so no write is lost."""
-    rows = granted.nonzero().squeeze(1)
-    dst = target[rows]
+    zero moments.  Granted targets are distinct, so no write is lost.  The
+    copy is a gather by each slot's source row, so no row count is read
+    back to the host."""
+    P = model.capacity
+    dev = model.alive.device
+    # each slot's source row (-1 for none); refused rows write to slot P,
+    # which is cut off
+    src_of = torch.full((P + 1,), -1, dtype=torch.int64, device=dev)
+    src_of[torch.where(granted, target, P)] = torch.arange(P, device=dev)
+    src_of = src_of[:P]
+    hit = src_of >= 0
+    rows = src_of.clamp(min=0)
+
+    def mask(x):
+        return hit.reshape((-1,) + (1,) * (x.dim() - 1))
 
     def put(d, s):
-        d = d.clone()
-        d[dst] = s[rows]
-        return d
+        return torch.where(mask(d), s[rows], d)
 
     def zero(m):
-        m = m.clone()
-        m[dst] = 0.0
-        return m
+        return torch.where(mask(m), 0.0, m)
 
-    alive = model.alive.clone()
-    alive[dst] = True
     return dataclasses.replace(
         model, params=_map_params(put, model.params, src),
         mu=_map_params(zero, model.mu), nu=_map_params(zero, model.nu),
-        alive=alive)
+        alive=model.alive | hit)
 
 
 def _sampled_positions(model: GaussianModel, eps: torch.Tensor
@@ -393,10 +399,11 @@ def _sampled_positions(model: GaussianModel, eps: torch.Tensor
 @torch.no_grad()
 def densify_and_prune(model: GaussianModel, noise: torch.Tensor,
                       cfg: DensifyConfig, scene_extent: float,
-                      max_screen_size: Optional[float] = None
-                      ) -> GaussianModel:
+                      max_screen_size: Optional[float] = None):
     """Clone → split → prune, then zero the statistics.  `noise` is
-    `densify_noise`'s (3, P, 3) draws.
+    `densify_noise`'s (3, P, 3) draws.  Returns (the model, the event's
+    counts): a (3,) int64 tensor on the model's device of the clones and
+    splits granted and the alive slots pruned, read by no host sync.
 
     Clone: small alive splats with a high mean gradient get a copy at a
     position sampled inside them.  Split: large ones with a high gradient,
@@ -420,6 +427,7 @@ def densify_and_prune(model: GaussianModel, noise: torch.Tensor,
         model.params, xyz=_sampled_positions(model, noise[0]))
     tgt, got = _allocate_slots(alive, want_clone, g)
     model = _scatter_from(model, clone_src, tgt, got)
+    n_clone = got.sum()
 
     # split: large splats with a high (or a high absolute) gradient
     big = ~small & model.alive
@@ -441,6 +449,7 @@ def densify_and_prune(model: GaussianModel, noise: torch.Tensor,
     tgt, got = _allocate_slots(model.alive, want_split,
                                torch.maximum(g, g_abs))
     model = _scatter_from(model, child_b, tgt, got)
+    n_split = got.sum()
 
     def rows(x):
         return got.reshape((-1,) + (1,) * (x.dim() - 1))
@@ -458,9 +467,11 @@ def densify_and_prune(model: GaussianModel, noise: torch.Tensor,
         prune = prune | (model.max_radii2d > max_screen_size)
         prune = prune | (model.scale.amax(-1)
                          > _f32_product(0.1, scene_extent))
+    prune = model.alive & prune
     zeros = torch.zeros_like(model.grad_accum)
+    counts = torch.stack([n_clone, n_split, prune.sum()])
     return dataclasses.replace(model, alive=model.alive & ~prune,
-                               **{k: zeros for k in STAT_FIELDS})
+                               **{k: zeros for k in STAT_FIELDS}), counts
 
 
 def _with_opacity(model: GaussianModel, op: torch.Tensor) -> GaussianModel:

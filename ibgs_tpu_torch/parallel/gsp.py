@@ -502,9 +502,10 @@ def shard_generator(seed: int, mesh, device, axis: str = "gs"
 
 def gsp_densify_fn(mesh, cfg: gaussians.DensifyConfig, max_screen=None,
                    axis: str = "gs"):
-    """densify(model_loc, gen, extent, noise=None) -> model_loc: clone,
-    split and prune within this rank's own P/n slot pool through the
-    single-chip `densify_and_prune`, with the abs-split budget divided
+    """densify(model_loc, gen, extent, noise=None) -> (model_loc, counts):
+    clone, split and prune within this rank's own P/n slot pool through
+    the single-chip `densify_and_prune` (counts: this shard's clones,
+    splits and prunes on the device), with the abs-split budget divided
     over the n shards.  The noise is drawn from `gen` (a `shard_generator`)
     unless given as a (3, P/n, 3) tensor.  No collective."""
     n = C.axis_size(mesh, axis)

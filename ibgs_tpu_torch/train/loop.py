@@ -2,8 +2,9 @@
 
 From a scene's seed cloud to a trained model: KNN-scaled initialisation,
 the step schedule (colour-only steps, then geometry rendering with the
-warp, then colour aggregation), densify / prune with capacity growth,
-opacity reset and decay, the per-view depth cache that feeds the warp,
+warp, then colour aggregation), after every step the maintenance of
+train/maintenance.py (densify / prune with capacity growth, opacity
+reset and decay), the per-view depth cache that feeds the warp,
 evaluation, PLY snapshots, checkpoints and resume, and the live SIBR
 viewer (`viewer_port`: one pending viewer message served per iteration).
 
@@ -12,9 +13,10 @@ order and background come from `np.random.default_rng(seed)` with the JAX
 package's calls, so both packages visit the same cameras in the same
 order; densify noise comes from a `torch.Generator` on the device seeded
 with `seed`.  Device values are read at a densify event (the alive
-count), at a log line (the losses and `nonfinite_grads`) and, in debug
-mode, after every step.  Each step's instance and row counts are host
-ints already (binning sizes its lists exactly).
+count before it, then its counts in one transfer), at a log line (the
+losses and `nonfinite_grads`) and, in debug mode, after every step.
+Each step's instance and row counts are host ints already (binning sizes
+its lists exactly).
 
 With `mesh` (a ("dp", "gs") DeviceMesh of parallel/distributed, one
 process per rank) the same driver trains Gaussian-sharded: each rank holds
@@ -42,20 +44,17 @@ from ibgs_tpu_torch.config import (ModelParams, OptimizationParams,
 from ibgs_tpu_torch.data.dataset import SceneData, write_multiview_json
 from ibgs_tpu_torch.models.aggregation import (ColorFusionResidualNet,
                                                init_fusion_net)
-from ibgs_tpu_torch.models.gaussians import (DensifyConfig, decay_opacity,
-                                             init_from_points,
-                                             oneup_sh_degree, reset_opacity)
+from ibgs_tpu_torch.models.gaussians import init_from_points, oneup_sh_degree
 from ibgs_tpu_torch.ops.rasterize import RasterConfig
 from ibgs_tpu_torch.parallel import collectives, distributed, gsp, sharding
 from ibgs_tpu_torch.renderer import (render_depth_view, render_view,
                                      source_views_from_stacks)
 from ibgs_tpu_torch.train import checkpoint as ckpt
-from ibgs_tpu_torch.train import losses
+from ibgs_tpu_torch.train import losses, maintenance
 from ibgs_tpu_torch.train.logging import TrainLogger, colorize_depth
 from ibgs_tpu_torch.train.trainer import (APP_CAPACITY, SideOptState,
                                           StepPhase, TrainState,
-                                          densify_step, make_train_step,
-                                          maybe_grow)
+                                          make_train_step)
 from ibgs_tpu_torch.utils import profiling
 
 LOSS_KEYS = ("image_loss", "normal_loss", "photo_loss", "agg_loss", "psnr")
@@ -87,11 +86,12 @@ def train(
     """Train `scene` into `model_path`; returns (state, stacks), stacks
     holding the train images, the depth cache, the world → view matrices
     and the camera centres.  Writes train_log.jsonl (one record per logged
-    iteration), densify_log.jsonl (one per densify event: its ms, the
-    alive count before and after, the capacity), events.jsonl (one per
-    growth of the instance cap, the row cap or the capacity, and one per
-    evaluated split with its PSNR), multi_view.json, the
-    PLY snapshots of `save_iterations` and the checkpoints of
+    iteration), densify_log.jsonl (one per densify event: the record of
+    `maintenance.maintain`, its ms, the alive count before and after, the
+    slots cloned, split and pruned, the capacity before and after),
+    events.jsonl (one per growth of the instance cap, the row cap or the
+    capacity, and one per evaluated split with its PSNR), multi_view.json,
+    the PLY snapshots of `save_iterations` and the checkpoints of
     `checkpoint_iterations`.  Under `mesh` the exchange's caps default as
     in the JAX package when `pipe.instance_cap` is set, else to 0 (no cap);
     the returned state holds this rank's shard."""
@@ -155,7 +155,7 @@ def train(
         state = dataclasses.replace(state, model=gsp.shard_model(
             gsp.gsp_interleave(state.model, n_gs), mesh))
         gen = gsp.shard_generator(seed, mesh, dev)
-    dens_fns = {}
+    slots = maintenance.Pool(mesh)
 
     def full_model():
         """The whole model (gathered over the shards under a mesh: every
@@ -165,18 +165,8 @@ def train(
         return gsp.gather_model(state.model, mesh)
 
     def n_alive() -> int:
-        if mesh is None:
-            return int(state.model.alive.sum())
-        return int(collectives.psum(state.model.alive.sum().reshape(1),
-                                    mesh, "gs")[0])
+        return slots.read(state.model.alive.sum().reshape(1))[0]
 
-    dcfg = DensifyConfig(
-        grad_threshold=opt.densify_grad_threshold,
-        abs_grad_threshold=opt.densify_abs_grad_threshold,
-        opacity_cull=opt.opacity_cull_threshold,
-        percent_dense=opt.percent_dense,
-        abs_split_radii2d_threshold=opt.abs_split_radii2D_threshold,
-        max_abs_split=opt.max_abs_split_points)
     extent = float(scene.cameras_extent)
     bg_fixed = (torch.ones(3, device=dev) if scene.white_background
                 else torch.zeros(3, device=dev))
@@ -287,20 +277,6 @@ def train(
             grew = True
         if grew:
             steps.clear()
-
-    def grow(it, tag=""):
-        nonlocal state
-        full = full_model()
-        model, newcap = maybe_grow(full, opt.max_all_points)
-        if newcap is not None:
-            log_event(it, "capacity", old=full.capacity, new=newcap,
-                      pre_densify=bool(tag))
-            if mesh is not None:
-                # the new free slots pad the end: deal them out again
-                model = gsp.shard_model(gsp.gsp_interleave(model, n_gs), mesh)
-            state = dataclasses.replace(state, model=model)
-            if main:
-                print(f"[it {it}] capacity -> {newcap}{tag}", flush=True)
 
     if viewer_port is not None:
         from ibgs_tpu_torch.eval import viewer as _viewer
@@ -434,47 +410,19 @@ def train(
 
         check_caps(aux["n_instances"], aux.get("n_rows", 0), it)
 
-        # maintenance cadence
-        if it < opt.densify_until_iter:
-            if (it > opt.densify_from_iter
-                    and it % opt.densification_interval == 0):
-                max_screen = (20.0 if it > opt.opacity_reset_interval
-                              else None)
-                # grow before the densify when occupancy is already near
-                # capacity, so that clone / split are not slot-starved
-                grow(it, " (pre-densify)")
-                t0 = time.perf_counter()
-                n_before = n_alive()
-                if mesh is None:
-                    model = densify_step(state.model, gen, dcfg, extent,
-                                         max_screen=max_screen)
-                else:
-                    if max_screen not in dens_fns:
-                        dens_fns[max_screen] = gsp.gsp_densify_fn(
-                            mesh, dcfg, max_screen=max_screen)
-                    model = dens_fns[max_screen](state.model, gen, extent)
-                state = dataclasses.replace(state, model=model)
-                n_after = n_alive()
-                ms = (time.perf_counter() - t0) * 1e3
-                grow(it)
-                rec = dict(iter=it, ms=ms, n_alive_before=n_before,
-                           n_alive_after=n_after,
-                           capacity=state.model.capacity * max(n_gs, 1))
-                if mesh is not None:
-                    rec["gsp_shards"] = n_gs
+        state, rec = maintenance.maintain(
+            state, it, opt, gen, extent, scene.white_background, slots)
+        if rec is not None:
+            for g in rec.pop("grows"):
+                log_event(it, "capacity", **g)
                 if main:
-                    with open(os.path.join(model_path, "densify_log.jsonl"),
-                              "a") as f:
-                        f.write(json.dumps(rec) + "\n")
-            if it % opt.opacity_reset_interval == 0 or (
-                    scene.white_background and it == opt.densify_from_iter):
-                state = dataclasses.replace(
-                    state, model=reset_opacity(state.model))
-            if (0 < opt.opacity_decay < 1
-                    and it % opt.opacity_decay_interval == 0
-                    and it > opt.densify_from_iter):
-                state = dataclasses.replace(state, model=decay_opacity(
-                    state.model, opt.opacity_decay))
+                    tag = " (pre-densify)" if g["pre_densify"] else ""
+                    print(f"[it {it}] capacity -> {g['new']}{tag}",
+                          flush=True)
+            if main:
+                with open(os.path.join(model_path, "densify_log.jsonl"),
+                          "a") as f:
+                    f.write(json.dumps(rec) + "\n")
 
         if it % log_every == 0 or it == first_iter:
             m = {k: float(aux[k]) for k in LOSS_KEYS}

@@ -270,20 +270,32 @@ def make_train_step(opt: OptimizationParams, rcfg: RasterConfig,
 
 def densify_step(model: GaussianModel, gen: torch.Generator,
                  cfg: gaussians.DensifyConfig, extent: float,
-                 max_screen: Optional[float] = None) -> GaussianModel:
-    """densify_and_prune with the event's noise drawn from `gen`."""
+                 max_screen: Optional[float] = None):
+    """densify_and_prune with the event's noise drawn from `gen`: (the
+    model, its device counts of clones, splits and prunes)."""
     noise = gaussians.densify_noise(gen, model.capacity, model.alive.device)
     return gaussians.densify_and_prune(model, noise, cfg, extent,
                                        max_screen_size=max_screen)
 
 
-def maybe_grow(model: GaussianModel, max_all_points: int):
-    """Double the capacity when more than 90% of the slots are alive and
+def grown_capacity(capacity: int, n_alive: int,
+                   max_all_points: int) -> Optional[int]:
+    """The doubled capacity when more than 90% of the slots are alive and
     the capacity is below `max_all_points` (capped at the power of two
-    above it).  Reads the alive count from the device.  Returns (model,
-    new capacity or None)."""
-    cap = model.capacity
-    if int(model.alive.sum()) > 0.9 * cap and cap < max_all_points:
-        newcap = min(cap * 2, 1 << int(np.ceil(np.log2(max_all_points))))
-        return gaussians.grow_capacity(model, newcap), newcap
-    return model, None
+    above it), else None."""
+    if n_alive > 0.9 * capacity and capacity < max_all_points:
+        return min(capacity * 2, 1 << int(np.ceil(np.log2(max_all_points))))
+    return None
+
+
+def maybe_grow(model: GaussianModel, max_all_points: int,
+               n_alive: Optional[int] = None):
+    """The model at `grown_capacity` when it grows.  `n_alive` is the
+    alive count where the caller has read it already; else it is read
+    from the device.  Returns (model, new capacity or None)."""
+    if n_alive is None:
+        n_alive = int(model.alive.sum())
+    newcap = grown_capacity(model.capacity, n_alive, max_all_points)
+    if newcap is None:
+        return model, None
+    return gaussians.grow_capacity(model, newcap), newcap

@@ -11,7 +11,8 @@ package.
 * `densify_and_prune` slot for slot, with JAX's three normal draws
   (`split(key, 3)`, as `ibgs_tpu.models.gaussians.densify_and_prune`
   draws them) passed as the port's `noise`: params, Adam moments, alive
-  mask and the zeroed statistics.  Integers and the mask exactly, floats
+  mask and the zeroed statistics; its counts of clones, splits and
+  prunes add up to the change of the alive count.  Integers and the mask exactly, floats
   1e-6.  Cases: clone-dominated, split through the absolute-gradient path
   with its `max_abs_split` budget binding, slot starvation, and a prune
   with `max_screen_size`.
@@ -188,10 +189,13 @@ def test_densify_and_prune_matches_jax(case):
     tcfg = dataclasses.replace(tg.DensifyConfig(), **over)
     jm = jg.densify_and_prune(_jax_model(a), key, jcfg, jnp.float32(extent),
                               max_screen_size=max_screen)
-    tm = tg.densify_and_prune(_port_model(a),
-                              torch.as_tensor(_jax_noise(key, P)), tcfg,
-                              float(extent), max_screen_size=max_screen)
+    tm, counts = tg.densify_and_prune(
+        _port_model(a), torch.as_tensor(_jax_noise(key, P)), tcfg,
+        float(extent), max_screen_size=max_screen)
     _assert_models_equal(tm, jm)
+    cloned, split, pruned = counts.tolist()
+    assert counts.dtype == torch.int64
+    assert cloned + split - pruned == int(tm.alive.sum()) - a["alive"].sum()
     for k in STATS:
         assert not getattr(tm, k).any(), k
     assert tm.step == 7 and tm.active_sh_degree == 2

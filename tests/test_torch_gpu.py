@@ -667,10 +667,12 @@ def test_densify_and_prune_on_the_card_matches_the_cpu():
     noise = torch.as_tensor(r.normal(size=(3, 4096, 3)).astype(np.float32))
     cfg = tg.DensifyConfig(max_abs_split=40)
     for max_screen in (None, 20.0):
-        want = tg.densify_and_prune(model, noise, cfg, 1.7, max_screen)
-        got = tg.densify_and_prune(_to(model, dev), noise.to(dev), cfg, 1.7,
-                                   max_screen)
+        want, n_want = tg.densify_and_prune(model, noise, cfg, 1.7,
+                                            max_screen)
+        got, n_got = tg.densify_and_prune(_to(model, dev), noise.to(dev),
+                                          cfg, 1.7, max_screen)
         assert torch.equal(got.alive.cpu(), want.alive)
+        assert n_got.tolist() == n_want.tolist()
         assert int(want.alive.sum()) != int(model.alive.sum())
         for tree in ("params", "mu", "nu"):
             for k in tg.PARAM_FIELDS:
@@ -680,6 +682,93 @@ def test_densify_and_prune_on_the_card_matches_the_cpu():
                     atol=1e-6, err_msg=f"{tree}.{k}")
         for k in tg.STAT_FIELDS:
             assert not getattr(got, k).any()
+
+
+@pytest.mark.gpu
+def test_maintain_at_the_1m_layout_on_the_card(monkeypatch):
+    """`train/maintenance.maintain` on prod-1m's layout (1M alive of
+    1,310,720 slots, a third of them over the cell's gradient threshold)
+    on the card and on the CPU from the same state and noise: the alive
+    mask and the event's record equal, every tensor within 1e-6 (the
+    card's sampled positions round differently in the rotation), a
+    growth to 2,621,440 slots after the densify; at most 2 host syncs on
+    the card (the count before, the counts after).  Then a colour step at
+    the grown capacity: finite, one launch of each kernel."""
+    import warnings
+
+    dev = _cuda()
+    from ibgs_tpu_torch.bench import simple_camera
+    from ibgs_tpu_torch.config import OptimizationParams
+    from ibgs_tpu_torch.models import gaussians as tg
+    from ibgs_tpu_torch.ops.rasterize import RasterConfig
+    from ibgs_tpu_torch.train import maintenance, trainer
+    wh = (960, 544)
+    extent = 13.0   # about half the splats under percent_dense x extent
+    model, _ = tbi.random_scene(torch.device("cpu"), wh)
+    P = model.capacity
+    r = np.random.default_rng(11)
+    denom = torch.as_tensor(r.integers(1, 9, P).astype(np.float32))
+    model = dataclasses.replace(
+        model, denom=denom, denom_abs=denom.clone(),
+        grad_accum=torch.as_tensor(r.uniform(0, 1.2e-4, P).astype(
+            np.float32)) * denom,
+        grad_accum_abs=torch.as_tensor(r.uniform(0, 2e-4, P).astype(
+            np.float32)) * denom,
+        max_radii2d=torch.as_tensor(r.uniform(0, 40, P).astype(np.float32)))
+    noise = torch.as_tensor(r.normal(size=(3, P, 3)).astype(np.float32))
+    noises = {"cpu": noise, "cuda": noise.to(dev)}
+    monkeypatch.setattr(tg, "densify_noise", lambda gen, cap, device:
+                        noises[torch.device(device).type][:, :cap])
+    opt = OptimizationParams(densify_grad_threshold=8e-5,
+                             densify_abs_grad_threshold=1.6e-4)
+    app = torch.zeros(trainer.APP_CAPACITY, 2)
+
+    def state_on(d):
+        a = app.to(d)
+        return trainer.TrainState(
+            model=_to(model, d), app_ab=a,
+            app_opt=trainer.SideOptState.init([a]), net=None, net_opt=None,
+            spatial_lr_scale=extent)
+
+    want, wrec = maintenance.maintain(state_on("cpu"), 600, opt, None,
+                                      extent)
+    got = state_on(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got, grec = maintenance.maintain(got, 600, opt, None, extent)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert 1 <= len(syncs) <= 2, [str(w.message) for w in syncs]
+    assert {k: v for k, v in grec.items() if k != "ms"} == \
+        {k: v for k, v in wrec.items() if k != "ms"}
+    assert grec["grows"] == [dict(old=P, new=2 * P, pre_densify=False)]
+    assert grec["cloned"] > 0 and grec["split"] > 0
+    assert got.model.capacity == 2 * P == 2_621_440
+    assert torch.equal(got.model.alive.cpu(), want.model.alive)
+    for tree in ("params", "mu", "nu"):
+        for k in tg.PARAM_FIELDS:
+            np.testing.assert_allclose(
+                getattr(getattr(got.model, tree), k).cpu().numpy(),
+                getattr(getattr(want.model, tree), k).numpy(), rtol=1e-6,
+                atol=1e-6, err_msg=f"{tree}.{k}")
+
+    rcfg = RasterConfig(staircase_cull=True)
+    cam = simple_camera(*wh, device=dev)
+    step = trainer.make_train_step(opt, rcfg, None, trainer.StepPhase(
+        render_geo=False, use_aggregation=False))
+    gt = torch.rand(wh[1], wh[0], 3, generator=torch.Generator().manual_seed(
+        3)).to(dev)
+    (state, aux), launched = tbi.launched(lambda: step(
+        got, cam, 0, gt, None, 601, torch.zeros(3, device=dev), False, 0.5,
+        1e-3))
+    assert int(aux["nonfinite_grads"]) == 0 and tbi.finite(aux)
+    assert launched == tbi.want(1, 1, ssim=1, tile_passes=tbi.passes(
+        wh, rcfg), optim=1), launched
+    assert state.model.capacity == 2_621_440
 
 
 @pytest.mark.gpu

@@ -235,8 +235,8 @@ def session2(a: dict) -> dict:
                                                      percent_dense=10.0))
     k = C.axis_index(mesh, "gs")
     local = gsp.shard_model(model_from(a["densify_model"]), mesh)
-    local = dens(local, None, 1.0,
-                 noise=torch.as_tensor(a["densify_noise"][k]))
+    local, _ = dens(local, None, 1.0,
+                    noise=torch.as_tensor(a["densify_noise"][k]))
     out["densify"] = arrays(gsp.gather_model(local, mesh))
 
     x = (torch.arange(6.0).reshape(2, 3) + 10 * k).requires_grad_(True)
