@@ -24,7 +24,10 @@ benchmark.run`.  One JSON line a phase:
           at 960x544 and 1920x1088 with one real backward of each mode,
           the random 1M scene at 960x544, seeded SSIM frames at 1920x1088
           and 960x540 as the train step passes them, a seeded train
-          state at 1,310,720 and 2,620,416 slots for the optimizer
+          state at 1,310,720 and 2,620,416 slots for the optimizer, and
+          `pack_rows`' backward on the binning cases' instances (the
+          bundle at 1920x1088, the 1M scene at 960x544) with seeded
+          cotangents of 15 columns
 
 then {"kernels": [...], "launches": {...}} (a row per kernel: source,
 what it replaces, its main case's ms, plain ms and bound, every case; the
@@ -187,6 +190,20 @@ def binning_bytes(P, n, num_tiles, tile_passes):
                           + radix_bytes(n, tile_passes, True)),
             "bin_count": 64 * P + 8, "bin_emit": 64 * P + 8 * n,
             "bin_ranges": 41 * n + 8 * min(P, n) + 4 * (num_tiles + 1)}
+
+
+def pack_bytes(P, n, C, long_ranks, long_slots):
+    """Bytes `pack_rows`' backward needs for P Gaussians, n instances and C
+    columns, each input read once and each output written once: n (9 +
+    4C) + P (16 + 4C) + 8, 274 MB at the 1M scene.  pack_inv the slots
+    (8) and the valid flags (1) in (its inverse is the design's own
+    scratch, read back from L2); pack_long the cotangent rows (4C) of the
+    long ranks' slots, their seg_off pairs and order entries (24) in and
+    their gradient rows (4C) out; pack_bwd the rest."""
+    total = n * (9 + 4 * C) + P * (16 + 4 * C) + 8
+    long_ = 4 * C * long_slots + (24 + 4 * C) * long_ranks
+    return {"pack_inv": 9 * n, "pack_bwd": total - 9 * n - long_,
+            "pack_long": long_}
 
 
 def check(failures, tag, fn, *args, **kw):
@@ -604,16 +621,67 @@ def main():
                                      for _ in range(PRE_PROFILED)]),
             "plain_ms": median_range([host_ms(plain) for _ in range(3)])})
 
+    # ---- timing: pack_rows' backward -----------------------------------
+    # the binning cases' instances with seeded cotangents of 15 columns:
+    # each kernel's device time from profiled calls of the wrapper (by
+    # kernel name), the three's events ms, the plain chain's ms by CUDA
+    # events with its device ms and launches, the ranks of more than 32
+    # slots (pack_long's) and the longest
+    pack_cases = []
+    for tag, (sp, (TX, TY)) in bin_in.items():
+        bins = binning.bin_staircase_cuda(sp, TX, TY, 0, cull_table(sp),
+                                          rcfg.tile_h, rcfg.tile_w, 0)
+        P, n = bins.order.shape[0], bins.rank.shape[0]
+        lens = torch.diff(bins.seg_off.clamp(0, n))
+        long_ = lens > 32
+        g = torch.randn(n, 15, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(0))
+        args = (g, bins.inst_valid, bins.slot, bins.seg_off, bins.order)
+        check(failures, f"pack_bwd {tag}", tbi.pack_bwd_pair, g, bins)
+
+        def kernel():
+            return binning.pack_rows_bwd_cuda(*args)
+
+        def plain():
+            return binning.pack_rows_bwd_plain(*args)
+        runs = [profiling.device_time(kernel, DEVICE, top=8)
+                for _ in range(PRE_PROFILED)]
+        if any("error" in r for r in runs):
+            failures.append(f"timing pack_bwd {tag}: {runs}")
+            continue
+        mine = {k: sorted(sum(t[1] for t in r["top"] if f"{k}_kernel" in t[0])
+                          for r in runs)[len(runs) // 2]
+                for k in _cuda.PACK_KERNELS}
+        nbytes = pack_bytes(P, n, 15, int(long_.sum()),
+                            int(lens[long_].sum()))
+        plain_ms = cuda_ms(plain, 3, warmup=1)
+        for k in _cuda.PACK_KERNELS:
+            pack_cases.append({
+                "kernel": k, "scene": tag, "splats": P, "instances": n,
+                **row(mine[k], plain_ms, nbytes[k]), **_cuda.kernel_info(k)})
+        p_dev = profiling.device_time(plain, DEVICE)
+        pack_cases.append({
+            "kernel": "pack_rows_bwd", "scene": tag, "splats": P,
+            "instances": n,
+            **row(sum(mine.values()), plain_ms, sum(nbytes.values())),
+            "device_launches": runs[0]["device_launches"],
+            "long_ranks": int(long_.sum()), "longest": int(lens.max()),
+            "events_ms": cuda_ms(kernel, 20),
+            "plain_device_ms": p_dev.get("device_busy_ms"),
+            "plain_launches": p_dev.get("device_launches")})
+        del bins, g, args
+
     ssim_cases = ssim_rows(dev, failures, tbi)
     optim_cases = optim_rows(dev, failures, tbi)
     emit({"phase": "timing", "blend_fwd": fwd_cases, "blend_bwd": bwd_cases,
           "warp": warp_cases, "preprocess": pre_cases,
-          "binning": bin_cases, "ssim": ssim_cases, "optim": optim_cases,
+          "binning": bin_cases, "pack": pack_cases, "ssim": ssim_cases,
+          "optim": optim_cases,
           "tile_ranges": {f"{wh[0]}x{wh[1]}": range_lengths(preps[wh])
                           for wh in SIZES}})
     if failures or not all(math.isfinite(c["ms"]) for c in (
-            *fwd_cases, *bwd_cases, *warp_cases, *pre_cases, *ssim_cases,
-            *optim_cases)):
+            *fwd_cases, *bwd_cases, *warp_cases, *pre_cases, *pack_cases,
+            *ssim_cases, *optim_cases)):
         for f in failures or ["a non-finite kernel time"]:
             print("chip_smoke FAILED: " + f, file=sys.stderr)
         return 1
@@ -652,6 +720,8 @@ def main():
            for k in ("preprocess_fwd", "preprocess_bwd")},
         **{k: ("binning", "ops/binning.py bin_splats",
                {"scene": f"bundle_{s1}"}) for k in _cuda.BIN_KERNELS},
+        **{k: ("binning", "ops/binning.py _pack_rows_bwd",
+               {"scene": f"random_1m_{s0}"}) for k in _cuda.PACK_KERNELS},
         **{k: ("ssim", "train/losses.py ssim_map",
                {"case": "%dx%d" % SSIM_SIZES[0]})
            for k in ("ssim_fwd", "ssim_bwd")},
@@ -659,7 +729,7 @@ def main():
                   "accumulate_stats; train/trainer.py:54 side_adam, :211 "
                   "the non-finite count", {"case": "1m"})}
     cases = [*fwd_cases, *bwd_cases, *warp_cases, *pre_cases, *bin_cases,
-             *ssim_cases, *optim_cases]
+             *pack_cases, *ssim_cases, *optim_cases]
     rows = []
     for name, (source, replaces, key) in table.items():
         mine = [c for c in cases if c["kernel"] == name]

@@ -50,7 +50,8 @@ _libs: dict = {}
 LAUNCHES = dict.fromkeys(
     ("blend_fwd", "blend_bwd", "rgb10_pack", "warp_fwd", "warp_bwd",
      "preprocess_fwd", "preprocess_bwd", "bin_key", "bin_radix", "bin_count",
-     "bin_emit", "bin_ranges", "ssim_fwd", "ssim_bwd", "optim"), 0)
+     "bin_emit", "bin_ranges", "ssim_fwd", "ssim_bwd", "optim", "pack_inv",
+     "pack_bwd", "pack_long"), 0)
 
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _c_ll = ctypes.c_longlong
@@ -116,6 +117,10 @@ _SIGNATURES = {
     "ibgs_bin_tile_passes": ([_c_int], _c_int),
     "ibgs_bin_tile_state_words": ([_c_ll, _c_int], _c_ll),
     "ibgs_binning_info": ([_c_int, ctypes.POINTER(_c_int)], _c_int),
+    # g, valid, slot, seg_off, order, n, P, C, scratch, out, the stream
+    "ibgs_pack_bwd": ([_c_ptr] * 5 + [_c_ll, _c_ll, _c_int] + [_c_ptr] * 3,
+                      _c_int),
+    "ibgs_pack_scratch_bytes": ([_c_ll, _c_ll], _c_ll),
     # x, x batch stride, y, y batch stride, B, H, W, C, the window, c1, c2,
     # out, the moments, the stream
     "ibgs_ssim_fwd": ([_c_ptr, _c_ll, _c_ptr, _c_ll] + [_c_int] * 4
@@ -428,6 +433,28 @@ def bin_ranges(tile_sorted, perm, slot_rank, order, num_tiles,
             *(t.data_ptr() for t in outs))
 
 
+PACK_KERNELS = ("pack_inv", "pack_bwd", "pack_long")
+
+
+def pack_scratch_bytes(n: int, P: int) -> int:
+    """Bytes of `pack_rows`' backward scratch for n instances and P
+    Gaussians."""
+    return load("binning").ibgs_pack_scratch_bytes(n, P)
+
+
+def pack_bwd(g, inst_valid, slot, seg_off, order, scratch, out) -> None:
+    """Launch ibgs_pack_bwd, `pack_rows`' backward: g (n, C) float32
+    cotangent rows in tile order, inst_valid (n,) bool, slot (n,), seg_off
+    (P + 1,) and order (P,) int64, all contiguous → out (P, C) float32;
+    `scratch` of pack_scratch_bytes(n, P) bytes (pack_inv, pack_bwd,
+    pack_long)."""
+    _launch(dict.fromkeys(PACK_KERNELS, 1), g.device,
+            load("binning").ibgs_pack_bwd,
+            g.data_ptr(), inst_valid.data_ptr(), slot.data_ptr(),
+            seg_off.data_ptr(), order.data_ptr(), g.shape[0],
+            order.shape[0], g.shape[1], scratch.data_ptr(), out.data_ptr())
+
+
 def ssim_window(weights) -> ctypes.Array:
     """The 11 window weights as the float array the SSIM entries take."""
     return (_c_float * len(weights))(*weights)
@@ -506,7 +533,7 @@ _INFO = {
     **{k: ("preprocess", "ibgs_preprocess_info", i, _SM + ("threads",))
        for i, k in enumerate(("preprocess_fwd", "preprocess_bwd"))},
     **{k: ("binning", "ibgs_binning_info", i, _SM + ("threads",))
-       for i, k in enumerate(BIN_KERNELS)},
+       for i, k in enumerate(BIN_KERNELS + PACK_KERNELS)},
     **{k: ("ssim", "ibgs_ssim_info", i, _SM + ("threads", "shared_bytes"))
        for i, k in enumerate(("ssim_fwd", "ssim_bwd"))},
     "optim": ("optim", "ibgs_optim_info", 0, _SM + ("threads",)),

@@ -22,7 +22,10 @@ of csrc/binning.cu (`bin_staircase_cuda`, launched through `_cuda`), bit for
 bit the same TileBins in 12 device events and one host read a render
 (their own radix sorts in place of the plain version's `torch.sort`s).
 There is no fallback: a CUDA input the kernels do not take raises.  The
-AABB path and `pack_rows` are torch code on both devices.
+AABB path and `pack_rows`' forward are torch code on both devices;
+`pack_rows`' backward is the plain chain (`pack_rows_bwd_plain`) on CPU
+tensors and the kernels of csrc/binning.cu (`pack_rows_bwd_cuda`) on CUDA
+tensors.
 """
 from __future__ import annotations
 
@@ -340,17 +343,97 @@ def bin_splats(sp: Splats2D, tiles_x: int, tiles_y: int, cap: int = 0,
                        seg_off)
 
 
-class _PackRows(torch.autograd.Function):
-    """Row gather forward; deterministic segment-sum backward (the JAX
-    package's `_pack_rows_bwd`): sorted-row cotangents go back to pre-sort
-    slot order through the `slot` permutation (a unique-index copy), a
+def pack_rows_bwd_plain(g, inst_valid, slot, seg_off, order):
+    """`pack_rows`' backward as torch ops (the JAX package's
+    `_pack_rows_bwd`): the (n, C) cotangent rows go back to pre-sort slot
+    order through the `slot` permutation (a unique-index copy), a float64
     cumsum plus a boundary difference over `seg_off` sums each Gaussian's
     slots in depth-rank order, and `order` puts the ranks back in
-    Gaussian-id order (another unique-index copy).  No float scatter-add,
-    so the gradient does not vary from run to run.  The cumsum runs in
-    float64: in float32 the difference of two running sums keeps an error
-    of an ulp of the running sum (~6e-8 once it reaches 1), which is
-    larger than the net gradient of a Gaussian whose instances cancel."""
+    Gaussian-id order (another unique-index copy): (P, C) float32.  No
+    float scatter-add, so the result does not vary from run to run.  The
+    cumsum runs in float64: in float32 the difference of two running sums
+    keeps an error of an ulp of the running sum (~6e-8 once it reaches 1),
+    which is larger than the net gradient of a Gaussian whose instances
+    cancel; in float64 it keeps about 2^-52 of the running sum."""
+    n, C = g.shape
+    # (C, n) layout: the scan runs along the contiguous dimension (a
+    # scan along dim 0 of (n, C) is one sequential walk per column)
+    g_pre = g.new_empty(C, n)
+    g_pre[:, slot] = torch.where(inst_valid[:, None], g, 0.0).t()
+    f64 = torch.float64
+    cums = torch.cat([g.new_zeros(C, 1, dtype=f64),
+                      torch.cumsum(g_pre, 1, dtype=f64)], 1)
+    cb = cums[:, torch.clamp(seg_off, 0, n)]
+    g_out = torch.empty(order.shape[0], C, dtype=g.dtype, device=g.device)
+    g_out[order] = (cb[:, 1:] - cb[:, :-1]).t().to(g.dtype)
+    return g_out
+
+
+def _check_pack(g, inst_valid, slot, seg_off, order):
+    """Raise ValueError on what the pack kernels do not take: g not a
+    contiguous (n, C) float32 table of 1 to 16 columns, an index tensor of
+    the wrong dtype or length or not contiguous, n or P of 2^31 - 1 or
+    more, or (checked last) a tensor off the CUDA device of g."""
+    if g.dtype != torch.float32 or g.dim() != 2 or \
+            not 1 <= g.shape[1] <= 16:
+        raise ValueError(f"pack_rows_bwd: g must be float32 (n, C) with "
+                         f"1 <= C <= 16, got {g.dtype} {tuple(g.shape)}")
+    n, P = g.shape[0], order.shape[0]
+    tensors = (("g", g, torch.float32, tuple(g.shape)),
+               ("inst_valid", inst_valid, torch.bool, (n,)),
+               ("slot", slot, torch.int64, (n,)),
+               ("seg_off", seg_off, torch.int64, (P + 1,)),
+               ("order", order, torch.int64, (P,)))
+    for name, t, dtype, shape in tensors:
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"pack_rows_bwd: {name} must be {dtype} "
+                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"pack_rows_bwd: {name} must be contiguous")
+    if max(n, P) >= _I32_MAX:
+        raise ValueError(f"pack_rows_bwd: the kernels take fewer than "
+                         f"2^31 - 1 rows, got n = {n}, P = {P}")
+    for _, t, _, _ in tensors:
+        if t.device.type != "cuda" or t.device != g.device:
+            raise ValueError(f"pack_rows_bwd: the kernels take tensors on "
+                             f"one CUDA device, got {t.device} and "
+                             f"{g.device}")
+
+
+def pack_rows_bwd_cuda(g, inst_valid, slot, seg_off, order):
+    """`pack_rows_bwd_plain` (same arguments, g contiguous) as the kernels
+    of csrc/binning.cu on the current stream: pack_inv, pack_bwd and
+    pack_long.  Each Gaussian's row is its slots' float64 sum rounded
+    once to float32 (within 1 float32 ulp of the exact sum): within 1 ulp
+    of the plain chain's wherever that chain's own float64 error is under
+    an ulp, and the same on every run.  A non-finite cotangent reaches its
+    own Gaussian's row only (the plain chain's running sum carries it into
+    every later rank's row of its column)."""
+    _check_pack(g, inst_valid, slot, seg_off, order)
+    n, C = g.shape
+    P = order.shape[0]
+    scratch = torch.empty(_cuda.pack_scratch_bytes(n, P), dtype=torch.uint8,
+                          device=g.device)
+    out = torch.empty(P, C, dtype=torch.float32, device=g.device)
+    _cuda.pack_bwd(g, inst_valid, slot, seg_off, order, scratch, out)
+    return out
+
+
+def pack_on_kernel(device) -> bool:
+    """Whether `pack_rows`' backward on `device` takes the kernels (a CUDA
+    device)."""
+    return torch.device(device).type == "cuda"
+
+
+class _PackRows(torch.autograd.Function):
+    """Row gather forward; deterministic segment-sum backward: each
+    Gaussian's slots, contiguous in depth-rank order ([seg_off[r],
+    seg_off[r+1]) for rank r), summed in float64 and rounded once
+    (`pack_rows_bwd_cuda`, on CUDA tensors), or the plain chain's float64
+    running-sum difference (`pack_rows_bwd_plain`, on CPU tensors, or on
+    the card where `pack_on_kernel` is patched): within 1 float32 ulp of
+    each other wherever the plain chain's own error is under an ulp, and
+    the same on every run."""
 
     @staticmethod
     def forward(ctx, feats_g, gauss_id, inst_valid, slot, seg_off, order):
@@ -361,18 +444,10 @@ class _PackRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         inst_valid, slot, seg_off, order = ctx.saved_tensors
-        n, C = g.shape
-        # (C, n) layout: the scan runs along the contiguous dimension (a
-        # scan along dim 0 of (n, C) is one sequential walk per column)
-        g_pre = g.new_empty(C, n)
-        g_pre[:, slot] = torch.where(inst_valid[:, None], g, 0.0).t()
-        f64 = torch.float64
-        cums = torch.cat([g.new_zeros(C, 1, dtype=f64),
-                          torch.cumsum(g_pre, 1, dtype=f64)], 1)
-        cb = cums[:, torch.clamp(seg_off, 0, n)]
-        g_out = torch.empty(order.shape[0], C, dtype=g.dtype, device=g.device)
-        g_out[order] = (cb[:, 1:] - cb[:, :-1]).t().to(g.dtype)
-        return g_out, None, None, None, None, None
+        fn = (pack_rows_bwd_cuda if pack_on_kernel(g.device)
+              else pack_rows_bwd_plain)
+        return (fn(g.contiguous(), inst_valid, slot, seg_off, order), None,
+                None, None, None, None)
 
 
 def pack_rows(feats_g: torch.Tensor, bins: TileBins) -> torch.Tensor:

@@ -1,7 +1,8 @@
 // Staircase tile binning for NVIDIA Hopper (sm_90a): the depth order, the
 // per-Gaussian row and instance counts with their offsets, the instance
 // emission, the tile sort and the tile ranges of the port's
-// `bin_splats(staircase=True)`.
+// `bin_splats(staircase=True)`; and `pack_rows`' backward (pack_inv,
+// pack_bwd, at the end of this note).
 //
 // Replaces no TPU kernel: the JAX package bins with XLA ops,
 // ibgs_tpu/ops/binning.py `bin_splats` (its staircase path and
@@ -75,10 +76,55 @@
 // float -> int32 maps NaN to 0 and saturates (`to_i32`).  The integer
 // sums are exact.  No float atomics; repeats are bit-identical.
 //
+// pack_rows' backward replaces the JAX package's `_pack_rows_bwd`
+// (ibgs_tpu/ops/binning.py, XLA sorts and a cumsum) and the port's plain
+// chain (`pack_rows_bwd_plain`: a transposed scatter into slot order, a
+// float64 cumsum, a boundary gather and difference, a scatter by `order`;
+// about ten launches and three float64 copies of the (C, n) table).
+// Gaussian g = order[r] gets the sum, over the slots j of its depth rank
+// r, [seg_off[r], seg_off[r + 1]) clipped to [0, n), of the cotangent row
+// i with slot[i] = j where inst_valid[i]; a rank without slots gets zeros.
+//
+//   pack_inv    one thread per sorted row: inv[slot[i]] = i, or -1 where
+//               the row is culled (slot is a permutation of [0, n), so
+//               every slot is written and nothing is zeroed); one per
+//               rank: rank[order[r]] = r
+//   pack_bwd    one thread per Gaussian, 32 consecutive ones a warp: one
+//               of at most 32 slots sums its slots' rows in slot order,
+//               each column in float64, and the warp writes its 32 rows,
+//               rounded once, as one block of `out`; a Gaussian of more
+//               slots is appended to a list
+//   pack_long   a CTA per listed Gaussian: thread t sums slots s + t,
+//               s + t + 256, ..., and the 256 partial sums of each column
+//               are added in a fixed tree in shared memory
+//
+// The work is data movement; its random accesses are the reads of each
+// cotangent row where it lies (60 bytes at C = 15) through the inverse,
+// and of each Gaussian's seg_off pair through `rank` (4 bytes a slot and
+// a Gaussian, which stay in L2 between the launches).  The warp moves
+// rows whole (a load or store instruction two rows, lanes 0-15 and 16-31
+// a column each, through shared memory) and writes `out` in Gaussian
+// order.  Measured at a 1M step's sizes (H100): a thread per rank storing
+// its 15 floats to row order[r] took 0.61 ms, 0.36 of it the stores; the
+// same rows moved whole, 0.28; in Gaussian order, 0.23; a warp walking
+// its ranks' slots in order, lane c summing column c, 0.41, 0.34 of it
+// the walk's serial chain of shuffles and branches.  Segments are short
+// on the train cells (1 slot at the median, at most 10), but a near splat
+// covers thousands of tiles, and a thread walking such a segment would
+// hold its warp: those go to pack_long, whose CTAs share each one.  No float atomics: every sum's order is
+// fixed, so repeats are bit-identical, and the row is the float64
+// segment sum rounded once, where the plain chain's difference of two
+// running sums keeps an error of about 2^-52 of the running sum.  What
+// bounds it: bytes, read once and written once, n (9 + 4C) + P (16 + 4C):
+// at the 1M scene (n = 2,520,746, P = 1,310,720, C = 15) 274 MB, 0.082 ms
+// at 3.35 TB/s.
+//
 // The per-item work is in HD functions, so a host build of this file
 // (without __CUDACC__) runs the same items in sequence on the CPU: the
 // `ibgs_bin_*_host` entries, which the CPU tests hold to the plain version
-// with a stable sort of the same keys between them.
+// with a stable sort of the same keys between them, and
+// `ibgs_pack_bwd_host` (the card's additions in the card's order), held
+// to the plain chain and to exact sums.
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -401,6 +447,113 @@ Inputs make_inputs(const long long* order, const int* n_tiles,
   return in;
 }
 
+// ---- pack_rows' backward: the per-item work of the pack kernels
+
+constexpr int PACK_MAX_C = 16;   // cotangent columns the kernels take
+constexpr int PACK_SHORT = 32;   // the most slots a thread sums alone
+
+// What the pack kernels read and write; inv, rank, the long Gaussians and
+// their count live in one scratch buffer (PackLayout).
+struct PackArgs {
+  const float* g;           // (n, C) cotangent rows in sorted order
+  const uint8_t* valid;     // (n,)
+  const long long* slot;    // (n,) pre-sort slot of each sorted row
+  const long long* seg_off; // (P + 1,)
+  const long long* order;   // (P,)
+  long long n, P;
+  int C;
+  int* inv;                 // (n,) sorted row of each slot, -1 culled
+  int* rank;                // (P,) depth rank of each Gaussian
+  int* longs;               // Gaussians of more than PACK_SHORT slots
+  unsigned* nlong;          // their count
+  float* out;               // (P, C)
+};
+
+// The scratch in bytes: inv, rank, the count, the long Gaussians (at
+// most one per PACK_SHORT + 1 slots).
+struct PackLayout {
+  long long rank, nlong, longs, bytes;
+  HD PackLayout(long long n, long long P) {
+    rank = 4 * (n > 0 ? n : 1);
+    nlong = rank + 4 * (P > 0 ? P : 1);
+    longs = nlong + 4;
+    bytes = longs + 4 * (n / (PACK_SHORT + 1) + 1);
+  }
+};
+
+PackArgs make_pack_args(const float* g, const uint8_t* valid,
+                        const long long* slot, const long long* seg_off,
+                        const long long* order, long long n, long long P,
+                        int C, void* scratch, float* out) {
+  const PackLayout L(n, P);
+  char* base = static_cast<char*>(scratch);
+  PackArgs a;
+  a.g = g;
+  a.valid = valid;
+  a.slot = slot;
+  a.seg_off = seg_off;
+  a.order = order;
+  a.n = n;
+  a.P = P;
+  a.C = C;
+  a.inv = reinterpret_cast<int*>(base);
+  a.rank = reinterpret_cast<int*>(base + L.rank);
+  a.nlong = reinterpret_cast<unsigned*>(base + L.nlong);
+  a.longs = reinterpret_cast<int*>(base + L.longs);
+  a.out = out;
+  return a;
+}
+
+// seg_off[r] clipped to the n slots kept.
+HD long long pack_slot(long long s, long long n) {
+  return s < 0 ? 0 : (s > n ? n : s);
+}
+
+// The value that slot j's sorted row i = inv[j] adds to column c: its
+// cotangent, or 0 where the row is culled.
+HD float pack_value(const PackArgs& a, int i, int c) {
+  return (i >= 0 && i < a.n) ? a.g[(long long)i * a.C + c] : 0.0f;
+}
+
+// pack_inv's item k: slot s = slot[k] of sorted row k gets k, or -1 where
+// the row is culled (slots outside [0, n) are not written); Gaussian
+// order[k] gets depth rank k; item 0 also zeroes the count of long
+// Gaussians.
+HD void pack_inv_item(long long k, const PackArgs& a) {
+  if (k < a.n) {
+    const long long s = a.slot[k];
+    if (s >= 0 && s < a.n) a.inv[s] = a.valid[k] ? (int)k : -1;
+  }
+  if (k < a.P) {
+    const long long g = a.order[k];
+    if (g >= 0 && g < a.P) a.rank[g] = (int)k;
+  }
+  if (k == 0) *a.nlong = 0;
+}
+
+// Gaussian g's slots [*s, *s + *len): its depth rank's, clipped.
+HD void pack_segment(const PackArgs& a, long long g, long long* s,
+                     long long* len) {
+  const int r = a.rank[g];
+  const bool ok = r >= 0 && r < a.P;
+  *s = ok ? pack_slot(a.seg_off[r], a.n) : 0;
+  const long long e = ok ? pack_slot(a.seg_off[r + 1], a.n) : 0;
+  *len = e > *s ? e - *s : 0;
+}
+
+// acc[c] += the rows of slots j = s + t, s + t + stride, ... below e, in
+// that order, each column in float64 (a Gaussian of at most PACK_SHORT
+// slots: t = 0, stride 1, its thread alone; a longer one: thread t of a
+// CTA).
+HD void pack_sum(const PackArgs& a, long long s, long long e, long long t,
+                 long long stride, double* acc) {
+  for (long long j = s + t; j < e; j += stride) {
+    const int i = a.inv[j];
+    for (int c = 0; c < PACK_MAX_C; ++c)
+      if (c < a.C) acc[c] += (double)pack_value(a, i, c);
+  }
+}
+
 #ifdef __CUDACC__
 
 constexpr unsigned FULL = 0xffffffffu;
@@ -709,6 +862,94 @@ bin_ranges_kernel(const uint32_t* tile_sorted, const long long* perm,
               gauss_id, tile_id, valid, start);
 }
 
+__global__ void __launch_bounds__(THREADS)
+pack_inv_kernel(PackArgs a, long long items) {
+  const long long k = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (k < items) pack_inv_item(k, a);
+}
+
+// A thread per Gaussian, 32 consecutive Gaussians a warp: one of at most
+// PACK_SHORT slots is summed by its thread (a longer one is listed for
+// pack_long).  The warp moves rows whole: at step k each lane names the
+// row of its Gaussian's k-th slot, and load instruction q reads the rows
+// of lanes 2q and 2q + 1 (lanes 0-15 and 16-31, a column a lane) into
+// shared memory, from which each thread adds its own row; at the end the
+// warp's 32 rows, consecutive in `out`, go out the same way.  A lane past
+// its last slot adds a zero row, which leaves its float64 sums as they
+// are.
+__global__ void __launch_bounds__(THREADS) pack_bwd_kernel(PackArgs a) {
+  __shared__ float s_rows[WARPS][32 * (PACK_MAX_C + 1)];
+  constexpr int RS = PACK_MAX_C + 1;  // a row's stride, odd: no conflicts
+  const int lane = threadIdx.x & 31, col = lane & 15, half = lane >> 4;
+  float* sm = s_rows[threadIdx.x >> 5];
+  const long long g = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long g0 = g - lane;
+  long long s = 0, len = 0;
+  int own = g < a.P;  // whether this kernel writes g's row
+  if (own) {
+    pack_segment(a, g, &s, &len);
+    if (len > PACK_SHORT) {
+      a.longs[atomicAdd(a.nlong, 1u)] = (int)g;
+      len = own = 0;
+    }
+  }
+  const int steps = __reduce_max_sync(FULL, (unsigned)len);
+  double acc[PACK_MAX_C] = {};
+  float v[16];
+  for (int k = 0; k < steps; ++k) {
+    const int il = k < len ? a.inv[s + k] : -1;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const int i = __shfl_sync(FULL, il, 2 * q + half);
+      v[q] = col < a.C ? pack_value(a, i, col) : 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < 16; ++q) sm[(2 * q + half) * RS + col] = v[q];
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < PACK_MAX_C; ++c)
+      acc[c] += (double)sm[lane * RS + c];
+    __syncwarp();
+  }
+#pragma unroll
+  for (int c = 0; c < PACK_MAX_C; ++c) sm[lane * RS + c] = (float)acc[c];
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    const int row = 2 * q + half;
+    if (__shfl_sync(FULL, own, row) && col < a.C)
+      a.out[(g0 + row) * a.C + col] = sm[row * RS + col];
+  }
+}
+
+// A CTA per listed Gaussian (grid-stride over the list): thread t sums its
+// slots s + t, s + t + 256, ...; the 256 partial sums of each column are
+// added in a fixed tree (pairs 128 apart, then 64, ...), so the row does
+// not depend on the CTA or the list's order.
+__global__ void __launch_bounds__(THREADS) pack_long_kernel(PackArgs a) {
+  __shared__ double red[PACK_MAX_C][THREADS];
+  const int t = threadIdx.x;
+  const unsigned count = *a.nlong;
+  for (unsigned k = blockIdx.x; k < count; k += gridDim.x) {
+    const long long g = a.longs[k];
+    long long s, len;
+    pack_segment(a, g, &s, &len);
+    double acc[PACK_MAX_C] = {};
+    pack_sum(a, s, s + len, t, THREADS, acc);
+#pragma unroll
+    for (int c = 0; c < PACK_MAX_C; ++c) red[c][t] = acc[c];
+    for (int half = THREADS / 2; half > 0; half >>= 1) {
+      __syncthreads();
+      if (t < half)
+#pragma unroll
+        for (int c = 0; c < PACK_MAX_C; ++c) red[c][t] += red[c][t + half];
+    }
+    __syncthreads();
+    if (t < a.C) a.out[g * a.C + t] = (float)red[t][0];
+    __syncthreads();
+  }
+}
+
 typedef const void* KernelPtr;
 
 KernelPtr kernel_for(int which) {
@@ -718,6 +959,9 @@ KernelPtr kernel_for(int which) {
     case 2: return (KernelPtr)bin_count_kernel;
     case 3: return (KernelPtr)bin_emit_kernel;
     case 4: return (KernelPtr)bin_ranges_kernel;
+    case 5: return (KernelPtr)pack_inv_kernel;
+    case 6: return (KernelPtr)pack_bwd_kernel;
+    case 7: return (KernelPtr)pack_long_kernel;
     default: return nullptr;
   }
 }
@@ -777,6 +1021,11 @@ int sort_passes(long long n, int passes, const unsigned long long* hist,
 // 64-bit words of the workspace for P Gaussians (zeroed by the caller).
 extern "C" long long ibgs_bin_workspace_words(long long P) {
   return Layout(P).words;
+}
+
+// Bytes of the pack kernels' scratch for n instances and P Gaussians.
+extern "C" long long ibgs_pack_scratch_bytes(long long n, long long P) {
+  return PackLayout(n, P).bytes;
 }
 
 // Radix passes of the tile sort for num_tiles tiles.
@@ -897,9 +1146,36 @@ extern "C" int ibgs_bin_ranges(const uint32_t* tile_sorted,
   return (int)cudaGetLastError();
 }
 
+// pack_rows' backward: g (n, C) float32 cotangent rows in tile order,
+// valid (n,) bool, slot (n,) int64, seg_off (P + 1,) int64, order (P,)
+// int64 → out (P, C) float32, every row written; scratch of
+// ibgs_pack_scratch_bytes(n) bytes, 4-aligned.  pack_inv, pack_bwd,
+// pack_long.  1 <= C <= PACK_MAX_C, n and P below 2^31 - 1.
+extern "C" int ibgs_pack_bwd(const float* g, const uint8_t* valid,
+                             const long long* slot, const long long* seg_off,
+                             const long long* order, long long n, long long P,
+                             int C, void* scratch, float* out, void* stream) {
+  if (n < 0 || n >= 0x7fffffffLL || P < 0 || P >= 0x7fffffffLL || C < 1 ||
+      C > PACK_MAX_C)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const PackArgs a =
+      make_pack_args(g, valid, slot, seg_off, order, n, P, C, scratch, out);
+  const long long items = n > P ? n : (P > 0 ? P : 1);
+  pack_inv_kernel<<<(unsigned)blocks_of(items), THREADS, 0, st>>>(a, items);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  pack_bwd_kernel<<<(unsigned)blocks_of(P), THREADS, 0, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  pack_long_kernel<<<(unsigned)(2 * sm_count()), THREADS, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // Registers, local (spill) bytes per thread, CTAs one SM holds at once and
 // threads per CTA of kernel `which` (0 bin_key, 1 bin_radix, 2 bin_count,
-// 3 bin_emit, 4 bin_ranges), into out[0..3].
+// 3 bin_emit, 4 bin_ranges, 5 pack_inv, 6 pack_bwd, 7 pack_long), into
+// out[0..3].
 extern "C" int ibgs_binning_info(int which, int* out) {
   const KernelPtr k = kernel_for(which);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
@@ -982,6 +1258,49 @@ extern "C" void ibgs_bin_ranges_host(const uint32_t* tile_sorted,
   for (long long i = 0; i < items; ++i)
     ranges_item(i, tile_sorted, perm, slot_rank, order, n, num_tiles, rank,
                 gauss_id, tile_id, valid, start);
+}
+
+// Gaussian g's row: the sums rounded once to float32.
+static void pack_write(const PackArgs& a, long long g, const double* acc) {
+  for (int c = 0; c < PACK_MAX_C; ++c)
+    if (c < a.C) a.out[g * a.C + c] = (float)acc[c];
+}
+
+// ibgs_pack_bwd's items in sequence: pack_inv's, then each Gaussian as
+// pack_bwd sums it or, past PACK_SHORT slots, as pack_long does (its 256
+// threads' partial sums, then the same tree), the card's additions in the
+// card's order.
+// Writes nothing where C is out of range.
+extern "C" void ibgs_pack_bwd_host(const float* g, const uint8_t* valid,
+                                   const long long* slot,
+                                   const long long* seg_off,
+                                   const long long* order, long long n,
+                                   long long P, int C, void* scratch,
+                                   float* out) {
+  if (C < 1 || C > PACK_MAX_C) return;
+  const PackArgs a =
+      make_pack_args(g, valid, slot, seg_off, order, n, P, C, scratch, out);
+  const long long items = n > P ? n : (P > 0 ? P : 1);
+  for (long long k = 0; k < items; ++k) pack_inv_item(k, a);
+  double red[THREADS][PACK_MAX_C];
+  for (long long gi = 0; gi < P; ++gi) {
+    long long s, len;
+    pack_segment(a, gi, &s, &len);
+    double acc[PACK_MAX_C] = {};
+    if (len <= PACK_SHORT) {
+      pack_sum(a, s, s + len, 0, 1, acc);
+    } else {
+      for (int t = 0; t < THREADS; ++t) {
+        for (int c = 0; c < PACK_MAX_C; ++c) red[t][c] = 0.0;
+        pack_sum(a, s, s + len, t, THREADS, red[t]);
+      }
+      for (int half = THREADS / 2; half > 0; half >>= 1)
+        for (int t = 0; t < half; ++t)
+          for (int c = 0; c < PACK_MAX_C; ++c) red[t][c] += red[t + half][c];
+      for (int c = 0; c < PACK_MAX_C; ++c) acc[c] = red[0][c];
+    }
+    pack_write(a, gi, acc);
+  }
 }
 
 #endif  // __CUDACC__

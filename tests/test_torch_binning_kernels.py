@@ -16,6 +16,14 @@ three digits; and the digit counts that bin_emit leaves for the tile
 sort must be those of the ids it wrote.  What the host build cannot show
 (the radix passes, the chained scans across CTAs, the launches) is the
 card's test.
+
+`pack_rows`' backward kernels (pack_inv, pack_bwd, pack_long) sum each
+Gaussian's slots in float64 and round once; their host build
+(`ibgs_pack_bwd_host`, the same items in sequence) must come within a
+float32 ulp of the plain chain and of the exact segment sums (math.fsum)
+on the binning cases' bins and on synthetic ones: segments of thousands
+of slots, culled rows, a cap inside a segment, no instance, and
+instances that cancel to a residual which a float32 running sum loses.
 """
 import ctypes
 import re
@@ -38,7 +46,8 @@ _HOST = {"ibgs_bin_key_host": [_P, _P, _LL, _P],
          + [_P] * 3,
          "ibgs_bin_emit_host": [_P] * 5 + [_LL] + [_INT] * 4 + [_P] * 2
          + [_LL] + [_P] * 3,
-         "ibgs_bin_ranges_host": [_P] * 4 + [_LL, _INT] + [_P] * 5}
+         "ibgs_bin_ranges_host": [_P] * 4 + [_LL, _INT] + [_P] * 5,
+         "ibgs_pack_bwd_host": [_P] * 5 + [_LL, _LL, _INT] + [_P] * 2}
 
 
 @pytest.fixture(scope="module")
@@ -52,6 +61,8 @@ def host_lib(tmp_path_factory):
     for fn, argtypes in _HOST.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = None
+    lib.ibgs_pack_scratch_bytes.argtypes = [_LL, _LL]
+    lib.ibgs_pack_scratch_bytes.restype = _LL
     return lib
 
 
@@ -255,7 +266,8 @@ def test_binning_kernels_are_built_and_bound():
     assert _cuda.SOURCES["binning"].name == "binning.cu"
     text = _cuda.SOURCES["binning"].read_text()
     for fn in ("ibgs_bin_order", "ibgs_bin_count", "ibgs_bin_emit",
-               "ibgs_bin_tiles", "ibgs_bin_ranges", "ibgs_binning_info",
+               "ibgs_bin_tiles", "ibgs_bin_ranges", "ibgs_pack_bwd",
+               "ibgs_pack_scratch_bytes", "ibgs_binning_info",
                "ibgs_bin_workspace_words", "ibgs_bin_tile_passes",
                "ibgs_bin_tile_state_words"):
         assert fn in _cuda._SIGNATURES
@@ -270,3 +282,153 @@ def test_binning_kernels_are_built_and_bound():
     assert 'extern "C" const char* ibgs_cuda_error_string' in text
     assert _cuda.BIN_KERNELS == tuple(k for k in _cuda.LAUNCHES
                                       if k.startswith("bin_"))
+
+
+# ------------------------------------------------------ pack_rows' backward
+
+def _pack_inputs(case):
+    """(g, inst_valid, slot, seg_off, order) of a pack case: the bins of a
+    binning case (`random`: the staircase, 15 columns; `caps`: the
+    staircase with cap and row_cap inside a Gaussian; `aabb_culled`: the
+    AABB path with the exact cull, so culled rows, and a cap) with seeded
+    cotangents, or a synthetic case of bcases.pack_case."""
+    if case in bcases.PACK_CASES:
+        x = bcases.pack_case(case)
+        return x.g, x.inst_valid, x.slot, x.seg_off, x.order
+    sp, cull, TX, TY, TH, TW = bcases.scene("caps" if case == "caps"
+                                            else "random")
+    if case == "random":
+        bins = tbin.bin_staircase_plain(sp, TX, TY, 0, cull, TH, TW, 0)
+    elif case == "caps":
+        cap, row_cap = bcases.caps_inside(
+            lambda c, rc: tbin.bin_staircase_plain(sp, TX, TY, c, cull, TH,
+                                                   TW, rc), sp, cull, TX, TY,
+            TH, TW)
+        bins = tbin.bin_staircase_plain(sp, TX, TY, cap, cull, TH, TW,
+                                        row_cap)
+        assert bins.rank.shape[0] == cap < bins.n_instances
+    else:
+        total = tbin.bin_splats(sp, TX, TY, cull_tab=cull, tile_h=TH,
+                                tile_w=TW).n_instances
+        bins = tbin.bin_splats(sp, TX, TY, total * 3 // 4, cull_tab=cull,
+                               tile_h=TH, tile_w=TW)
+        assert 0 < int((~bins.inst_valid).sum()) < bins.rank.shape[0]
+    C = 15 if case == "random" else 16
+    g = torch.randn(bins.rank.shape[0], C,
+                    generator=torch.Generator().manual_seed(7))
+    return g, bins.inst_valid, bins.slot, bins.seg_off, bins.order
+
+
+def host_pack_bwd(lib, g, inst_valid, slot, seg_off, order):
+    """The host build's pack kernels' items: (P, C) float32."""
+    n, C = g.shape
+    P = order.shape[0]
+    scratch = torch.full((lib.ibgs_pack_scratch_bytes(n, P),), 0x5A,
+                         dtype=torch.uint8)
+    out = torch.full((P, C), float("nan"))
+    lib.ibgs_pack_bwd_host(_ptr(g), _ptr(inst_valid), _ptr(slot),
+                           _ptr(seg_off), _ptr(order), n, P, C,
+                           _ptr(scratch), _ptr(out))
+    return out
+
+
+def exact_sums(g, inst_valid, slot, seg_off, order):
+    """Each Gaussian's slot sum by math.fsum (the exact sum, rounded once
+    to float64), float32-rounded: (P, C)."""
+    import math
+    n, C = g.shape
+    by_slot = torch.zeros(n, C, dtype=torch.float64)
+    by_slot[slot] = torch.where(inst_valid[:, None], g, 0.0).double()
+    rows = by_slot.numpy()
+    so = seg_off.clamp(0, n).tolist()
+    out = torch.zeros(order.shape[0], C, dtype=torch.float64)
+    for r, gid in enumerate(order.tolist()):
+        block = rows[so[r]:so[r + 1]]
+        out[gid] = torch.tensor([math.fsum(block[:, c]) for c in range(C)],
+                                dtype=torch.float64)
+    return out.float()
+
+
+@pytest.mark.parametrize("case", ["random", "caps", "aabb_culled",
+                                  *bcases.PACK_CASES])
+def test_pack_bwd_host_matches_plain_and_exact_sums(host_lib, case):
+    """pack_rows' backward by the kernels' items: every row written, every
+    element within a float32 ulp of the plain chain and of the exact
+    segment sum, a repeat the same bit for bit.  In "long" the Gaussians
+    of more than 32 slots take pack_long's tree; in "cancel" a float32 running
+    sum, which the float64 sums replace, is off by more than 100 ulps."""
+    args = _pack_inputs(case)
+    got = host_pack_bwd(host_lib, *args)
+    plain = tbin.pack_rows_bwd_plain(*args)
+    exact = exact_sums(*args)
+    assert torch.isfinite(got).all()
+    assert bool((bcases.ulps(got, plain) <= 1).all())
+    assert bool((bcases.ulps(got, exact) <= 1).all())
+    assert torch.equal(host_pack_bwd(host_lib, *args), got)
+    if case == "empty":
+        assert args[0].shape[0] == 0 and not got.any()
+    if case == "cancel":
+        g, valid, slot, seg_off, order = args
+        n = g.shape[0]
+        pre = torch.zeros(n, g.shape[1])
+        pre[slot] = torch.where(valid[:, None], g, 0.0)
+        cums = torch.cat([torch.zeros(1, g.shape[1]), pre.cumsum(0)])
+        f32 = torch.empty_like(got)
+        f32[order] = cums[seg_off[1:]] - cums[seg_off[:-1]]
+        assert int(bcases.ulps(f32, exact).max()) > 100
+
+
+def test_pack_rows_backward_routes_by_device(monkeypatch):
+    """pack_rows' backward on CPU tensors is the plain chain and launches
+    nothing; with `pack_on_kernel` patched to True it takes the kernels'
+    wrapper, which refuses CPU tensors (no fallback)."""
+    x = bcases.pack_case("long", C=15)
+    P = x.order.shape[0]
+    feats = torch.randn(P, 15, generator=torch.Generator().manual_seed(3),
+                        requires_grad=True)
+    bins = tbin.TileBins(order=x.order, rank=None, gauss_id=x.gauss_id,
+                         tile_id=None, inst_valid=x.inst_valid,
+                         tile_start=None, tile_stop=None, n_instances=0,
+                         slot=x.slot, seg_off=x.seg_off)
+    before = dict(_cuda.LAUNCHES)
+    out = tbin.pack_rows(feats, bins)
+    assert torch.equal(out, torch.where(x.inst_valid[:, None],
+                                        feats[x.gauss_id], 0.0))
+    (grad,) = torch.autograd.grad(out, feats, x.g)
+    assert torch.equal(grad, tbin.pack_rows_bwd_plain(
+        x.g, x.inst_valid, x.slot, x.seg_off, x.order))
+    assert _cuda.LAUNCHES == before
+    monkeypatch.setattr(tbin, "pack_on_kernel", lambda device: True)
+    out = tbin.pack_rows(feats, bins)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        torch.autograd.grad(out, feats, x.g)
+    assert _cuda.LAUNCHES == before
+
+
+def test_pack_bwd_wrapper_rejects_bad_inputs():
+    """The pack kernels' wrapper raises ValueError, before any build or
+    launch, on a cotangent that is not a contiguous float32 table of 1 to
+    16 columns, an index tensor of the wrong dtype or length or not
+    contiguous, and (checked last) tensors off one CUDA device."""
+    x = bcases.pack_case("long")
+    g, v, s, so, o = x.g, x.inst_valid, x.slot, x.seg_off, x.order
+    n = g.shape[0]
+    bad = [
+        ((torch.zeros(n, 17), v, s, so, o), "1 <= C <= 16"),
+        ((torch.zeros(n, 0), v, s, so, o), "1 <= C <= 16"),
+        ((g.double(), v, s, so, o), "g must be float32"),
+        ((g[:, None], v, s, so, o), "g must be float32"),
+        ((g.t().contiguous().t(), v, s, so, o), "g must be contiguous"),
+        ((g, v.to(torch.uint8), s, so, o), "inst_valid must be"),
+        ((g, v, s.int(), so, o), "slot must be"),
+        ((g, v, s, so[:-1], o), "seg_off must be"),
+        ((g, v, s, so, o.int()), "order must be"),
+        ((g, v, s, so, torch.stack([o, o], 1)[:, 0]),
+         "order must be contiguous"),
+        ((g, v, s, so, o), "one CUDA device"),
+    ]
+    before = dict(_cuda.LAUNCHES)
+    for a, msg in bad:
+        with pytest.raises(ValueError, match=msg):
+            tbin.pack_rows_bwd_cuda(*a)
+    assert _cuda.LAUNCHES == before

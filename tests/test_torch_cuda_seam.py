@@ -21,7 +21,7 @@ from tests.test_torch_slice import one_torch_thread  # noqa: F401
 KERNELS = ("blend_fwd", "blend_bwd", "rgb10_pack", "warp_fwd", "warp_bwd",
            "preprocess_fwd", "preprocess_bwd", "bin_key", "bin_radix",
            "bin_count", "bin_emit", "bin_ranges", "ssim_fwd", "ssim_bwd",
-           "optim")
+           "optim", "pack_inv", "pack_bwd", "pack_long")
 OPS = Path(_cuda.__file__).resolve().parent
 # what only the seam may hold
 SEAM_WORDS = ("cuda_stream", "current_stream", "error_string", "LAUNCHES")
@@ -30,6 +30,7 @@ SEAM_WORDS = ("cuda_stream", "current_stream", "error_string", "LAUNCHES")
 def test_launches_name_every_kernel():
     assert tuple(_cuda.LAUNCHES) == KERNELS
     assert _cuda.BIN_KERNELS == KERNELS[7:12]
+    assert _cuda.PACK_KERNELS == KERNELS[15:]
 
 
 @pytest.mark.parametrize("path", sorted(p for p in OPS.glob("*.py")
@@ -111,9 +112,9 @@ def test_kernel_info_reads_its_entry(kernel, no_card):
 
 
 def test_kernel_info_covers_the_four_entries():
-    """One query for the warp, projection, binning, SSIM and optimizer
-    kernels, each kernel at its index in its entry (the C side's
-    order)."""
+    """One query for the warp, projection, binning (pack_rows' backward
+    among them), SSIM and optimizer kernels, each kernel at its index in
+    its entry (the C side's order)."""
     by_entry = {}
     for kernel, (lib, entry, which, _) in _cuda._INFO.items():
         assert entry in _cuda._SIGNATURES and lib in _cuda.SOURCES
@@ -121,7 +122,7 @@ def test_kernel_info_covers_the_four_entries():
     assert {e: [k for _, k in sorted(v)] for e, v in by_entry.items()} == {
         "ibgs_warp_info": ["warp_fwd", "warp_bwd", "rgb10_pack"],
         "ibgs_preprocess_info": ["preprocess_fwd", "preprocess_bwd"],
-        "ibgs_binning_info": list(_cuda.BIN_KERNELS),
+        "ibgs_binning_info": [*_cuda.BIN_KERNELS, *_cuda.PACK_KERNELS],
         "ibgs_ssim_info": ["ssim_fwd", "ssim_bwd"],
         "ibgs_optim_info": ["optim"]}
     assert not any(hasattr(_cuda, f"{k}_info")

@@ -18,7 +18,9 @@ forward tolerance, on B = 1-12 entries, S = 1 and 5 sources, NaN, out of
 bounds, bands and padded rows.  The projection kernels (`-k preprocess`)
 on tests/torch_preprocess_cases.py, the backward within 2x the float32
 plain version's error against float64.  The binning kernels (`-k bin`)
-and the SSIM kernels (`-k ssim`) bit for bit.  The Tanks and Temples
+and the SSIM kernels (`-k ssim`) bit for bit; `pack_rows`' backward
+(`-k pack`) within a float32 ulp of a float64 sum and of the plain chain,
+repeats bit-identical.  The Tanks and Temples
 frame (`-k tnt`, 960x540, its last tile row 12/16 live).  The optimizer's
 kernel (`-k optim`) bit for bit at the bundle's, the 1M and the Tanks and
 Temples capacities, with dead slots and planted NaN and infinities, and
@@ -27,7 +29,7 @@ three bundle train steps through it against the plain chain.
 On the bundle (tests/torch_bundle_inputs.py, the kernel table's inputs in
 chip_smoke.py): every kernel on the real instances and the cotangents of a
 real backward of the training objective at 960x544 and 1920x1088, and on
-the random 1M scene; exact launch counts of each of the 15 kernels per
+the random 1M scene; exact launch counts of each of the 18 kernels per
 served view and per train step (`_cuda.LAUNCHES`); row bands; the
 Gaussian-sharded step at world size 1; the 300-iteration loop with its
 resume, the evaluation path on its model, the CLI with `--gsp_shards 1`,
@@ -1100,7 +1102,9 @@ def test_gsp_step_at_world_size_one_matches_single_chip(scene, request):
 @contextlib.contextmanager
 def _plain_kernels():
     """Routes every kernel wrapper (blend, warp, projection, binning, SSIM)
-    to its plain version, so a run takes its plain path on the card."""
+    to its plain version, so a run takes its plain path on the card
+    (`pack_rows`' backward stays on its kernels: `binning.pack_on_kernel`
+    routes it)."""
     from ibgs_tpu_torch.ops import binning
     from ibgs_tpu_torch.ops import ssim as tssim
     from ibgs_tpu_torch.train import losses
@@ -1403,6 +1407,97 @@ def test_bin_splats_refuses_rectangles_outside_the_grid():
     bad = dataclasses.replace(sp, rect_max=rect_max)
     with pytest.raises(ValueError, match="outside"):
         binning.bin_staircase_cuda(bad, TX, TY, 0, cull, TH, TW, 0)
+
+
+# ------------------------------------------------------ pack_rows' backward
+
+PACK_CASES = ["bundle_1920x1088", "random_1m_960x544", "cap_culled",
+              *bcases.PACK_CASES]
+
+
+def _pack_case(case, dev, request):
+    """(cotangents, bins) of one case of pack_rows' backward: the bundle's
+    instances at 1920x1088 and the random 1M scene's at 960x544 (binned by
+    the kernels, 15 columns, seeded normal cotangents); the AABB path with
+    the exact cull and a cap (culled rows, n below the total; 16
+    columns); tests/torch_binning_cases.py's synthetic cases (segments of
+    up to 12,000 slots, cancelling instances, no instance)."""
+    from ibgs_tpu_torch.ops import binning
+    from ibgs_tpu_torch.ops.rasterize import cull_table
+    gen = torch.Generator(device=dev).manual_seed(PACK_CASES.index(case))
+    if case in bcases.PACK_CASES:
+        x = bcases.pack_case(case, device=dev)
+        return x.g, x
+    if case == "cap_culled":
+        sp, cull, TX, TY, TH, TW = bcases.scene("random", device=dev)
+        total = binning.bin_splats(sp, TX, TY, cull_tab=cull, tile_h=TH,
+                                   tile_w=TW).n_instances
+        bins = binning.bin_splats(sp, TX, TY, total * 3 // 4, cull_tab=cull,
+                                  tile_h=TH, tile_w=TW)
+        assert 0 < int((~bins.inst_valid).sum())
+        assert bins.rank.shape[0] < bins.n_instances
+        C = 16
+    elif case == "bundle_1920x1088":
+        bins = request.getfixturevalue("bundle").preps[tbi.SIZES[1]].bins
+        C = 15
+    else:
+        args = tbi.preprocess_args(*tbi.random_scene(dev, (960, 544)), True,
+                                   16, 32)
+        with torch.no_grad():
+            sp = pre.preprocess(*args)
+        bins = binning.bin_staircase_cuda(sp, 30, 34, 0, cull_table(sp), 16,
+                                          32, 0)
+        assert bins.n_instances > 1_000_000
+        C = 15
+    g = torch.randn(bins.rank.shape[0], C, device=dev, generator=gen)
+    return g, bins
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PACK_CASES)
+def test_pack_rows_bwd_kernel_matches_plain(case, request):
+    """pack_rows' backward kernels (pack_inv, pack_bwd, pack_long) against
+    the plain chain on the card and a float64 sum (tbi.pack_bwd_pair):
+    every element within a float32 ulp of the float64 sum and of the plain
+    chain (where that chain's own error is under an ulp), repeats
+    bit-identical; the gradient through `pack_rows` is the kernels' row for
+    row, in one launch of each."""
+    from ibgs_tpu_torch.ops import binning
+    dev = _cuda()
+    g, bins = _pack_case(case, dev, request)
+    worst, over, plain_off = tbi.pack_bwd_pair(g, bins)
+    print(f"\npack_bwd {case}: n {g.shape[0]}, at most {worst} ulp from the "
+          f"plain chain, {over} elements over 1, plain chain over 1 ulp "
+          f"from float64 at {plain_off}")
+    feats = torch.zeros(bins.order.shape[0], g.shape[1], device=dev,
+                        requires_grad=True)
+    out = binning.pack_rows(feats, bins)
+    (grad,), launched = tbi.launched(
+        lambda: torch.autograd.grad(out, feats, g))
+    assert launched == {"pack_inv": 1, "pack_bwd": 1, "pack_long": 1}
+    assert tbi.same_bits(grad, binning.pack_rows_bwd_cuda(
+        g, bins.inst_valid, bins.slot, bins.seg_off, bins.order))
+
+
+@pytest.mark.gpu
+def test_pack_rows_bwd_kernel_refuses_bad_inputs():
+    """The pack kernels' wrapper raises ValueError before any launch on a
+    cotangent of 17 columns, a non-contiguous cotangent, and a tensor off
+    the cotangent's CUDA device."""
+    from ibgs_tpu_torch.ops import binning
+    dev = _cuda()
+    x = bcases.pack_case("long", device=dev)
+    args = (x.inst_valid, x.slot, x.seg_off, x.order)
+    n = x.g.shape[0]
+    before = dict(cu.LAUNCHES)
+    for g, rest, msg in (
+            (torch.zeros(n, 17, device=dev), args, "1 <= C <= 16"),
+            (x.g.t().contiguous().t(), args, "g must be contiguous"),
+            (x.g, (x.inst_valid.cpu(), *args[1:]), "one CUDA device"),
+            (x.g.cpu(), tuple(a.cpu() for a in args), "one CUDA device")):
+        with pytest.raises(ValueError, match=msg):
+            binning.pack_rows_bwd_cuda(g, *rest)
+    assert cu.LAUNCHES == before
 
 
 # ------------------------------------------------ the Tanks and Temples frame

@@ -140,3 +140,64 @@ def caps_inside(plain_bins_fn, sp, cull, TX, TY, TH, TW):
     wide = torch.nonzero((seg[1:] - seg[:-1] >= 2) & (seg[:-1] > 0)).flatten()
     cap = int(seg[wide[len(wide) // 3]]) + 1
     return cap, row_cap
+
+
+# ------------------------------------------------------ pack_rows' backward
+
+PACK_CASES = ("long", "cancel", "empty")
+
+
+def pack_case(case: str, seed: int = 0, C: int = 16, device="cpu"):
+    """`pack_rows`' backward inputs without a scene: a namespace of g (n, C)
+    float32 cotangent rows in sorted order, inst_valid, slot, seg_off,
+    order and gauss_id (= order[rank] of each sorted row), as TileBins
+    holds them.  "long": 2,000 Gaussians, most with 0-3 slots, eight with
+    1,000-12,000 (a splat over most of a grid), a fifth of the rows
+    culled, the cap in the middle of the longest segment; "cancel": each
+    segment a residual of about 1e-4 among pairs +a, -a (a up to 100), so
+    that a float32 running sum loses the residual; "empty": no instance."""
+    import types
+    r = np.random.default_rng([seed, 99, PACK_CASES.index(case)])
+    P = {"long": 2000, "cancel": 3000, "empty": 500}[case]
+    if case == "long":
+        lens = r.integers(0, 4, P)
+        lens[r.choice(P, 8, replace=False)] = r.integers(1000, 12001, 8)
+    elif case == "cancel":
+        lens = 2 * r.integers(0, 4, P) + 1
+    else:
+        lens = np.zeros(P, np.int64)
+    seg_off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    n = int(seg_off[-1])
+    if case == "long":
+        big = int(np.argmax(lens))
+        n = int(seg_off[big] + lens[big] // 2)
+    rank_of_slot = np.searchsorted(seg_off, np.arange(n), side="right") - 1
+    if case == "cancel":
+        by_slot = np.empty((n, C), np.float32)
+        for rk in range(P):
+            b, e = seg_off[rk], seg_off[rk + 1]
+            res = r.uniform(0.5e-4, 1.5e-4, C) * r.choice([-1, 1], C)
+            a = r.uniform(1.0, 100.0, ((e - b) // 2, C)).astype(np.float32)
+            vals = np.concatenate([res[None].astype(np.float32), a, -a])
+            by_slot[b:e] = vals[r.permutation(e - b)]
+    else:
+        by_slot = r.normal(size=(n, C)).astype(np.float32)
+    slot = r.permutation(n).astype(np.int64)
+    order = r.permutation(P).astype(np.int64)
+    valid = (r.uniform(size=n) >= (0.2 if case == "long" else 0.0))
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+    return types.SimpleNamespace(
+        g=t(by_slot[slot]), inst_valid=t(valid), slot=t(slot),
+        seg_off=t(seg_off), order=t(order),
+        gauss_id=t(order[rank_of_slot[slot]]))
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise distance of two float32 tensors in float32 ulps (int64;
+    -0 and +0 the same; for finite values)."""
+    def key(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (key(a) - key(b)).abs()

@@ -515,6 +515,38 @@ def assert_optim_pair(x):
     return int(p_count)
 
 
+def pack_bwd_pair(g, bins):
+    """`pack_rows`' backward through the kernels and through the plain
+    chain on the card, on cotangents g and TileBins-like `bins`, held to
+    each other and to float64 sums taken by another route (a float64
+    index_add over gauss_id): the kernels' rows bit-identical on a repeat
+    and each element within a float32 ulp of the float64 sum; within one
+    of the plain chain's too, except where the plain chain is itself more
+    than an ulp off the float64 sum (its running-sum difference keeps an
+    error of about 2^-52 of the running sum, which can pass an ulp of a
+    small sum).  Returns (ulps to the plain chain at most, elements more
+    than an ulp from it, elements where the plain chain is more than an
+    ulp off the float64 sum)."""
+    from ibgs_tpu_torch.ops import binning
+    import torch_binning_cases as bcases
+    args = (g, bins.inst_valid, bins.slot, bins.seg_off, bins.order)
+    k = binning.pack_rows_bwd_cuda(*args)
+    again = binning.pack_rows_bwd_cuda(*args)
+    p = binning.pack_rows_bwd_plain(*args)
+    v = bins.inst_valid
+    exact = torch.zeros(k.shape, dtype=torch.float64, device=g.device)
+    exact.index_add_(0, bins.gauss_id[v], g[v].double())
+    exact = exact.float()
+    assert same_bits(k, again)
+    assert bool((bcases.ulps(k, exact) <= 1).all()), \
+        int(bcases.ulps(k, exact).max())
+    d_kp = bcases.ulps(k, p)
+    plain_off = bcases.ulps(p, exact) > 1
+    assert bool(((d_kp <= 1) | plain_off).all()), int(d_kp.max())
+    return (int(d_kp.max()) if d_kp.numel() else 0, int((d_kp > 1).sum()),
+            int(plain_off.sum()))
+
+
 # ------------------------------------------------------ launches by path
 
 def launched(fn):
@@ -533,9 +565,11 @@ def want(renders, backwards=0, warps=0, warp_bwds=0, ssim=0,
     """The launches of `renders` renders (each projects its splats and
     blends them; with `tile_passes`, each bins them through the kernels,
     its tile ids sorted in that many radix passes after the depth order's
-    4), `backwards` of them backward, `warps` warps (each packs its
-    sources first), `warp_bwds` warp backwards, `ssim` SSIM maps with
-    their backwards and `optim` optimizer passes; zeros left out."""
+    4, and each backward sums `pack_rows`' gradient through pack_inv,
+    pack_bwd and pack_long), `backwards` of them backward, `warps` warps
+    (each packs its sources first), `warp_bwds` warp backwards, `ssim`
+    SSIM maps with their backwards and `optim` optimizer passes; zeros
+    left out."""
     n = {"blend_fwd": renders, "blend_bwd": backwards, "rgb10_pack": warps,
          "warp_fwd": warps, "warp_bwd": warp_bwds,
          "preprocess_fwd": renders, "preprocess_bwd": backwards,
@@ -543,7 +577,9 @@ def want(renders, backwards=0, warps=0, warp_bwds=0, ssim=0,
     if tile_passes is not None:
         n.update(dict.fromkeys(("bin_key", "bin_count", "bin_emit",
                                 "bin_ranges"), renders),
-                 bin_radix=renders * (4 + tile_passes))
+                 bin_radix=renders * (4 + tile_passes),
+                 **dict.fromkeys(("pack_inv", "pack_bwd", "pack_long"),
+                                 backwards))
     return {k: v for k, v in n.items() if v}
 
 
